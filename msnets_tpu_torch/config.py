@@ -28,11 +28,17 @@ class MatchingConfig:
     sad_sigma: float = 20000.0   # also used for the sobel AML channel
     num_channels: int = 8    # 8 (left-only) or 16 (left+right)
     ds_scale: int = 2        # features computed at 1/ds_scale resolution
-    features_mode: str = "ms"    # "ms" or "raw" (raw is not ported yet)
+    features_mode: str = "ms"    # "ms" (matching space) or "raw" (2-channel
+                                 # raw-intensity volume, the ablation)
 
     @property
     def left_only(self) -> bool:
         return self.num_channels == 8
+
+    @property
+    def feature_channels(self) -> int:
+        """Channels the feature stage emits (the model's in_channels)."""
+        return 2 if self.features_mode == "raw" else self.num_channels
 
 
 @dataclasses.dataclass(frozen=True)

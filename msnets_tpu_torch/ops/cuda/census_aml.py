@@ -19,12 +19,13 @@ import functools
 import threading
 from typing import Tuple
 
+import numpy as np
 import torch
 
 from .. import matchers as M
 from . import _build
+from .census import check_pair
 
-_MAX_WSIZE = 11    # 121 census bits fill the kernel's 4 x 32-bit descriptor
 _COUNT_LOCK = threading.Lock()    # servers call from several threads
 
 
@@ -33,29 +34,9 @@ def census_aml_reference(iml: torch.Tensor, imr: torch.Tensor, ndisp: int,
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch census + clip + AML, each [D, H, W] float32."""
     c = M.census(iml, imr, ndisp, wsize).permute(2, 0, 1)
-    cost = M._div(torch.clamp(c, 0.0, 120.0), 120.0)
+    cost = M._div_const(torch.clamp(c, 0.0, 120.0), 120.0)
     aml = M.extract_aml(c, sigma, dim=0)
     return cost.contiguous(), aml.contiguous()
-
-
-def _check(iml: torch.Tensor, imr: torch.Tensor, ndisp: int, wsize: int):
-    for name, t in (("iml", iml), ("imr", imr)):
-        if t.dtype != torch.uint8:
-            raise TypeError(f"census_aml: {name} must be uint8, got {t.dtype}")
-        if t.dim() != 2:
-            raise ValueError(f"census_aml: {name} must be [H, W], got "
-                             f"{tuple(t.shape)}")
-        if not t.is_contiguous():
-            raise ValueError(f"census_aml: {name} must be contiguous")
-    if iml.shape != imr.shape or iml.device != imr.device:
-        raise ValueError("census_aml: iml and imr differ in shape or device: "
-                         f"{tuple(iml.shape)}@{iml.device} vs "
-                         f"{tuple(imr.shape)}@{imr.device}")
-    if min(iml.shape) < 1 or ndisp < 1:
-        raise ValueError(f"census_aml: empty input {tuple(iml.shape)}, "
-                         f"ndisp={ndisp}")
-    if wsize % 2 != 1 or not 1 <= wsize <= _MAX_WSIZE:
-        raise ValueError(f"census_aml: wsize must be odd and <= {_MAX_WSIZE}")
 
 
 @functools.cache
@@ -76,11 +57,9 @@ def census_aml(iml: torch.Tensor, imr: torch.Tensor, ndisp: int,
     CPU tensors take ``census_aml_reference``. CUDA tensors launch the
     kernel and raise if the launch fails; ``census_aml.launches`` counts
     those launches (one per call)."""
-    _check(iml, imr, ndisp, wsize)
+    check_pair("census_aml", iml, imr, ndisp, wsize)
     if iml.device.type == "cpu":
         return census_aml_reference(iml, imr, ndisp, wsize, sigma)
-    if iml.device.type != "cuda":
-        raise ValueError(f"census_aml: unsupported device {iml.device}")
     H, W = iml.shape
     fn = _kernel_fn()
     with torch.cuda.device(iml.device):
@@ -92,7 +71,8 @@ def census_aml(iml: torch.Tensor, imr: torch.Tensor, ndisp: int,
         stream = torch.cuda.current_stream(iml.device).cuda_stream
         err = fn(iml.data_ptr(), imr.data_ptr(), dl.data_ptr(),
                  dr.data_ptr(), cost.data_ptr(), aml.data_ptr(),
-                 H, W, ndisp, wsize, sigma, stream)
+                 H, W, ndisp, wsize,
+                 float(np.float32(1) / np.float32(sigma)), stream)
     if err != 0:
         raise RuntimeError(f"census_aml kernel launch failed: CUDA error "
                            f"{err} (H={H}, W={W}, ndisp={ndisp})")

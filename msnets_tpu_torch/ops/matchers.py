@@ -9,21 +9,26 @@ valid-region semantics: windows cover rows [wc, H-w+wc) and cols
 Numerics follow the JAX formulations step by step:
   * box sums are exact float32 shift-adds in the same order, not
     convolutions (cuDNN's float32 convolutions default to TF32);
-  * division by a constant goes through :func:`_div`, a true division. On
-    CUDA, ``tensor / python_float`` multiplies by the reciprocal instead,
-    which can differ in the last bit.
+  * a division by a value fixed at trace time in JAX goes through
+    :func:`_div_const`, a multiply by the float32 reciprocal: XLA compiles
+    every such division (``/255``, ``/120``, ``/n``, ``/2**13``, ``/sigma``)
+    into that multiply, which can differ from a true division in the last
+    bit. A division by a runtime tensor (AML's ``w / sum``) stays a true
+    division, as in XLA.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..config import INVALID
 
 
-def _div(x: torch.Tensor, v: float) -> torch.Tensor:
-    """``x / v`` as an IEEE division (the divisor is a 0-dim tensor on x's
-    device, which PyTorch does not rewrite into a reciprocal multiply)."""
-    return x / x.new_full((), v)
+def _div_const(x: torch.Tensor, v: float) -> torch.Tensor:
+    """``x / v`` as XLA computes it for a constant ``v``: ``x`` times the
+    float32 reciprocal of ``v`` (a 0-dim tensor on x's device, so that the
+    product is one float32 multiply on every device)."""
+    return x * x.new_full((), float(np.float32(1) / np.float32(v)))
 
 
 def _valid_mask(H: int, W: int, ndisp: int, w: int,
@@ -169,7 +174,7 @@ def zsad(iml: torch.Tensor, imr: torch.Tensor, ndisp: int,
     R = imr.to(torch.float32)
 
     def mean(img):
-        return _centre_pad(_div(_box_valid(img, wsize), n), H, W, wc)
+        return _centre_pad(_div_const(_box_valid(img, wsize), n), H, W, wc)
 
     muL, muR = mean(L), mean(R)
     K = muL[:, :, None] - shifted_over_disp(muR, ndisp)
@@ -205,6 +210,43 @@ def extract_aml(vol: torch.Tensor, sigma: float, dim: int = -1) -> torch.Tensor:
     the minimum is the INVALID sentinel the likelihoods are all 0."""
     mn = vol.amin(dim=dim, keepdim=True)
     num = vol - mn
-    w = torch.exp(_div(-(num * num), sigma))
+    w = torch.exp(_div_const(-(num * num), sigma))
     p = w / w.sum(dim=dim, keepdim=True)
     return torch.where(mn >= INVALID, p.new_zeros(()), p)
+
+
+def extract_pkrn(vol: torch.Tensor, e: float, dim: int = -1) -> torch.Tensor:
+    """PKRN peak-ratio confidence (min + e) / (c + e) over ``dim``; 0 where
+    the minimum is the INVALID sentinel."""
+    mn = vol.amin(dim=dim, keepdim=True)
+    r = (mn + e) / (vol + e)
+    return torch.where(mn >= INVALID, r.new_zeros(()), r)
+
+
+def reindex_planes(planes: torch.Tensor, to_right: bool = True) -> torch.Tensor:
+    """View re-indexing of a [D, H, W] cost volume, disparity-major.
+
+    ``to_right``: R[d, i, j] = L[d, i, j+d]; else L[d, i, j] = R[d, i, j-d].
+    Entries that fall off the image hold ``planes[0, 0, 0]``, read as a
+    0-dim tensor (no host sync). One concatenation pads W by D with that
+    fill, one strided view walks plane d shifted by d columns, one copy."""
+    D, H, W = planes.shape
+    fill = planes[0, 0, 0].expand(D, H, D)
+    Wp = W + D
+    if to_right:
+        padded = torch.cat([planes, fill], dim=2)
+        return padded.as_strided((D, H, W), (H * Wp + 1, Wp, 1)).contiguous()
+    padded = torch.cat([fill, planes], dim=2)
+    return padded.as_strided((D, H, W), (H * Wp - 1, Wp, 1), D).contiguous()
+
+
+def get_right_cost(cost_hwd: torch.Tensor) -> torch.Tensor:
+    """R[i, j, d] = L[i, j+d, d] over [H, W, D]; out-of-range entries hold
+    cost[0, 0, 0]."""
+    return reindex_planes(cost_hwd.permute(2, 0, 1), True).permute(1, 2, 0)
+
+
+def get_left_cost(cost_hwd: torch.Tensor) -> torch.Tensor:
+    """L[i, j, d] = R[i, j-d, d] over [H, W, D]; out-of-range entries hold
+    cost[0, 0, 0]."""
+    return reindex_planes(cost_hwd.permute(2, 0, 1), False).permute(1, 2, 0)

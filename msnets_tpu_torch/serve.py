@@ -14,6 +14,11 @@ Two bucketing modes, as in the JAX server:
   the padded band's features are non-zero, so outputs near the top and
   right edge shift slightly.
 
+The feature stage follows ``cfg.matching``: the 8-channel matching space
+(the default), the 16-channel left+right one (``num_channels=16``) or the
+2-channel raw-intensity volume (``features_mode="raw"``); the model's
+``in_channels`` must be ``cfg.matching.feature_channels``.
+
 The server runs in ``cfg.model.compute_dtype``. In bfloat16 the BatchNorm
 affines are folded into the conv and deconv weights in float32 and cast
 once (the JAX eval math); the head (deconv5, softmax, soft-argmin) stays

@@ -46,9 +46,8 @@ def test_reference_matches_pallas_interpret(shape, ndisp, tile, sigma):
                                      ndisp, 11, sigma)
     jc, ja = census_aml_pallas(jnp.asarray(a), jnp.asarray(b), ndisp, 11,
                                sigma, tile, True)
-    # XLA turns the division by 120 into a reciprocal multiply (1 ulp);
-    # the exact comparison of the cost channel is the numpy one below
-    np.testing.assert_allclose(_hwd(cost), np.asarray(jc), atol=1e-6)
+    # both divide by 120 as a multiply by its float32 reciprocal
+    np.testing.assert_array_equal(_hwd(cost), np.asarray(jc))
     np.testing.assert_allclose(_hwd(aml), np.asarray(ja), atol=1e-6)
 
 
@@ -60,22 +59,21 @@ def test_reference_matches_xla(shape, ndisp, tile, sigma):
                            11, sigma)
     ref_c = JM.census(jnp.asarray(a), jnp.asarray(b), ndisp, 11)
     np.testing.assert_array_equal(
-        _hwd(cost), np.clip(np.asarray(ref_c), 0, 120) / np.float32(120.0))
+        _hwd(cost),
+        np.clip(np.asarray(ref_c), 0, 120) * (np.float32(1) / np.float32(120)))
     np.testing.assert_allclose(_hwd(aml),
                                np.asarray(JM.extract_aml(ref_c, sigma)),
                                atol=1e-6)
 
 
-def test_cost_channel_within_one_ulp_of_xla():
-    """A known difference: XLA compiles ``clip(c)/120`` into a multiply by
-    the reciprocal, the port divides (as numpy does). The two cost channels
-    differ by at most one unit in the last place."""
+def test_cost_channel_exact_against_xla():
+    """XLA compiles ``clip(c)/120`` into a multiply by the float32
+    reciprocal of 120; the port computes the same, bit for bit."""
     a, b = _pair((30, 64))
     cost, _ = census_aml(torch.from_numpy(a), torch.from_numpy(b), 16)
     ref_c = JM.census(jnp.asarray(a), jnp.asarray(b), 16, 11)
     xla = np.asarray(jax.jit(lambda v: jnp.clip(v, 0.0, 120.0) / 120.0)(ref_c))
-    got = _hwd(cost)
-    assert np.all(np.abs(got - xla) <= np.spacing(np.maximum(got, xla)))
+    np.testing.assert_array_equal(_hwd(cost), xla)
 
 
 def test_all_invalid_when_narrower_than_window():

@@ -1,6 +1,6 @@
-"""The port on the GPU: the census_aml kernel against its plain PyTorch
-version, and the feature stage and server on the card against the same code
-on the CPU. Every test needs an NVIDIA GPU and skips without one; run them on
+"""The port on the GPU: the census and census_aml kernels against their plain
+PyTorch versions, and the feature stage and server on the card (8-channel,
+16-channel and raw variants) against the same code on the CPU. Every test needs an NVIDIA GPU and skips without one; run them on
 the card with
 
     python -m pytest --noconftest -p no:cacheprovider -q tests/test_torch_port_cuda.py
@@ -14,6 +14,7 @@ import torch
 from msnets_tpu_torch import Config, ModelConfig, StereoServer
 from msnets_tpu_torch.config import MatchingConfig
 from msnets_tpu_torch.models import MSGCNet
+from msnets_tpu_torch.ops.cuda.census import census, census_reference
 from msnets_tpu_torch.ops.cuda.census_aml import (census_aml,
                                                   census_aml_reference)
 from msnets_tpu_torch.ops.features import ms_features_test
@@ -83,17 +84,75 @@ def test_ms_features_on_the_card_match_the_cpu(cuda):
     assert err.max().item() <= 5e-6, err
 
 
-def test_server_on_the_card_matches_the_cpu(cuda):
-    cfg = Config(model=ModelConfig(max_disp=32, base_filters=8,
+VARIANTS = {"8ch": ({}, (1, 0)), "16ch": ({"num_channels": 16}, (0, 1)),
+            "raw": ({"features_mode": "raw"}, (0, 0))}
+
+
+@pytest.mark.parametrize("variant", list(VARIANTS))
+def test_server_on_the_card_matches_the_cpu(cuda, variant):
+    fields, (n_aml, n_census) = VARIANTS[variant]
+    matching = MatchingConfig(**fields)
+    cfg = Config(matching=matching,
+                 model=ModelConfig(max_disp=32, base_filters=8,
+                                   in_channels=matching.feature_channels,
                                    compute_dtype="float32"))
-    sd = MSGCNet(32, 8, 8, generator=torch.Generator().manual_seed(3)
-                 ).state_dict()
+    sd = MSGCNet(32, matching.feature_channels, 8,
+                 generator=torch.Generator().manual_seed(3)).state_dict()
     a, b = _pair((60, 120), 0)
     with fp32_reference():
         srv = StereoServer(cfg, sd, device=cuda)
-        before = census_aml.launches
+        before = (census_aml.launches, census.launches)
         got = srv.predict(a, b)
-        assert census_aml.launches == before + 1
+        assert (census_aml.launches - before[0],
+                census.launches - before[1]) == (n_aml, n_census)
     ref = StereoServer(cfg, sd, device="cpu").predict(a, b)
     assert got.shape == ref.shape == (60, 120)
     np.testing.assert_allclose(got, ref, atol=2e-3)
+
+
+@pytest.mark.parametrize("H,W,ndisp,wsize", [
+    (148, 276, 96, 11),     # serving path, 256x512 bucket
+    (212, 644, 96, 11),     # serving path, 384x1248 bucket
+    (45, 131, 40, 11),      # rows and disparities that divide no block
+    (30, 20, 32, 11),       # ndisp > W
+    (12, 8, 4, 11),         # W < window: all INVALID
+    (1, 1, 1, 11),
+    (33, 70, 17, 5),        # a smaller window
+])
+def test_census_kernel_matches_plain(cuda, H, W, ndisp, wsize):
+    a, b = (torch.from_numpy(x).to(cuda) for x in _pair((H, W), H + W))
+    before = census.launches
+    got = census(a, b, ndisp, wsize)
+    assert census.launches == before + 1
+    ref = census_reference(a, b, ndisp, wsize)
+    torch.cuda.synchronize()
+    assert got.shape == (ndisp, H, W)
+    assert torch.equal(got, ref)
+
+
+def test_census_kernel_rejects_mixed_devices(cuda):
+    a, b = (torch.from_numpy(x) for x in _pair((20, 40), 0))
+    with pytest.raises(ValueError):
+        census(a.to(cuda), b, 8)
+
+
+def test_16ch_and_raw_features_on_the_card_match_the_cpu(cuda):
+    a, b = _pair((64, 128), 7)
+    cfg = MatchingConfig(num_channels=16)
+    before = (census_aml.launches, census.launches)
+    got = ms_features_test(torch.from_numpy(a).to(cuda),
+                           torch.from_numpy(b).to(cuda), 32, cfg, False)
+    assert (census_aml.launches, census.launches) == (before[0], before[1] + 1)
+    ref = ms_features_test(torch.from_numpy(a), torch.from_numpy(b), 32, cfg,
+                           False)
+    err = (got.cpu() - ref).abs().amax(dim=(1, 2, 3))
+    # channels 0 and 8 are the kernel's census cost, normalized the same way
+    assert err[0].item() == 0.0 and err[8].item() == 0.0, err
+    assert err.max().item() <= 5e-6, err
+    raw = MatchingConfig(features_mode="raw")
+    got = ms_features_test(torch.from_numpy(a).to(cuda),
+                           torch.from_numpy(b).to(cuda), 32, raw, True,
+                           torch.bfloat16)
+    ref = ms_features_test(torch.from_numpy(a), torch.from_numpy(b), 32, raw,
+                           True, torch.bfloat16)
+    assert torch.equal(got.cpu(), ref)

@@ -14,7 +14,8 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "msnets_tpu")
 PORT_MODULES = [
     "msnets_tpu_torch", "msnets_tpu_torch.config", "msnets_tpu_torch.runtime",
     "msnets_tpu_torch.ops.matchers", "msnets_tpu_torch.ops.features",
-    "msnets_tpu_torch.ops.cuda._build", "msnets_tpu_torch.ops.cuda.census_aml",
+    "msnets_tpu_torch.ops.cuda._build", "msnets_tpu_torch.ops.cuda.census",
+    "msnets_tpu_torch.ops.cuda.census_aml",
     "msnets_tpu_torch.models", "msnets_tpu_torch.models.layers",
     "msnets_tpu_torch.models.gcnet", "msnets_tpu_torch.models.convert",
     "msnets_tpu_torch.serve",

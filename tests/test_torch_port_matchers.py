@@ -128,3 +128,51 @@ def test_valid_mask_and_box_valid():
     x = np.random.default_rng(6).integers(0, 256, (12, 17, 3)).astype(np.float32)
     np.testing.assert_array_equal(TM._box_valid(torch.from_numpy(x), 5).numpy(),
                                   np.asarray(JM._box_valid(jnp.asarray(x), 5)))
+
+
+def test_extract_pkrn():
+    """The case of tests/test_matchers.py::test_pkrn_golden."""
+    rng = np.random.default_rng(4)
+    vol = (rng.random((32, 8)) * 50).astype(np.float32)
+    vol[0, :] = INVALID
+    ref = np.asarray(JM.extract_pkrn(jnp.asarray(vol), 1.0))
+    got = TM.extract_pkrn(torch.from_numpy(vol), 1.0).numpy()
+    np.testing.assert_allclose(got, ref, atol=1e-6)
+    got0 = TM.extract_pkrn(torch.from_numpy(vol.T.copy()), 1.0, dim=0).numpy()
+    np.testing.assert_allclose(got0.T, ref, atol=1e-6)
+    assert (got[0] == 0).all()
+
+
+@pytest.mark.parametrize("D", [6, 25], ids=["D<W", "D>W"])
+def test_right_left_cost_exact(D):
+    """The round-trip case of tests/test_matchers.py, and D > W, where
+    every plane past W is the fill cost[0, 0, 0]."""
+    c = (np.random.default_rng(5).random((12, 20, D)) * 10).astype(np.float32)
+    right = TM.get_right_cost(torch.from_numpy(c)).numpy()
+    np.testing.assert_array_equal(right, np.asarray(JM.get_right_cost(jnp.asarray(c))))
+    left = TM.get_left_cost(torch.from_numpy(c)).numpy()
+    np.testing.assert_array_equal(left, np.asarray(JM.get_left_cost(jnp.asarray(c))))
+    back = TM.get_left_cost(torch.from_numpy(right)).numpy()
+    np.testing.assert_array_equal(
+        back, np.asarray(JM.get_left_cost(JM.get_right_cost(jnp.asarray(c)))))
+
+
+def test_reindex_planes_matches_the_hwd_functions():
+    c = np.random.default_rng(6).random((5, 9, 13)).astype(np.float32)  # [D, H, W]
+    hwd = torch.from_numpy(np.transpose(c, (1, 2, 0)).copy())
+    for to_right, fn in ((True, TM.get_right_cost), (False, TM.get_left_cost)):
+        planes = TM.reindex_planes(torch.from_numpy(c), to_right)
+        assert planes.is_contiguous()
+        assert torch.equal(planes.permute(1, 2, 0), fn(hwd))
+
+
+@pytest.mark.parametrize("v", [255.0, 120.0, 25.0, 2.0 ** 13, 128.0, 0.02,
+                               20000.0])
+def test_constant_division_matches_xla(v):
+    """XLA compiles ``x / v`` for a constant ``v`` into ``x`` times the
+    float32 reciprocal of ``v``; ``_div_const`` computes the same bits."""
+    import jax
+    x = (np.random.default_rng(9).random(4096) * 3e4).astype(np.float32)
+    ref = np.asarray(jax.jit(lambda a: -(a * a) / v)(jnp.asarray(x)))
+    got = TM._div_const(-(torch.from_numpy(x) ** 2), v).numpy()
+    np.testing.assert_array_equal(got, ref)

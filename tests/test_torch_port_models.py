@@ -56,6 +56,21 @@ def test_state_dict_round_trips_through_jax_converter(small_model):
     fresh.load_state_dict(back)          # strict: every key, every shape
 
 
+@pytest.mark.parametrize("cin", [16, 2], ids=["16ch", "raw"])
+def test_state_dict_round_trips_with_other_input_channels(cin):
+    """The 16-channel and raw variants change only conv3dbn_1's input
+    channels; the key schema and both converters carry them."""
+    m = build_model(ModelConfig(max_disp=32, in_channels=cin, base_filters=8),
+                    "cpu", generator=torch.Generator().manual_seed(2))
+    sd = _randomize_bn(m, 3).state_dict()
+    assert tuple(sd["conv3dbn_1.0.weight"].shape) == (8, cin, 3, 3, 3)
+    back = state_dict_from_jax(convert_state_dict(sd, "MS-GCNet"), "MS-GCNet")
+    assert list(back) == list(sd)
+    for k in sd:
+        assert torch.equal(back[k], sd[k]), k
+    MSGCNet(32, cin, 8).load_state_dict(back)
+
+
 def test_eval_matches_jax(small_model):
     x = np.random.default_rng(7).random((1, 8, 16, 16, 32), dtype=np.float32)
     with torch.no_grad():

@@ -9,7 +9,7 @@ from msnets_tpu.config import (Config as JaxConfig, MatchingConfig as JaxMC,
                                ModelConfig as JaxModelConfig)
 from msnets_tpu.models.torch_convert import convert_state_dict
 from msnets_tpu_torch import serve as TS
-from msnets_tpu_torch.config import Config, ModelConfig
+from msnets_tpu_torch.config import Config, MatchingConfig, ModelConfig
 from msnets_tpu_torch.models import MSGCNet, build_model
 from msnets_tpu_torch.runtime import fp32_reference, resolve_device
 
@@ -22,14 +22,15 @@ def _one_thread():
     torch.set_num_threads(n)
 
 
-def _cfg(dtype="float32"):
-    return Config(model=ModelConfig(max_disp=32, base_filters=8,
+def _cfg(dtype="float32", matching=MatchingConfig()):
+    return Config(matching=matching,
+                  model=ModelConfig(max_disp=32, base_filters=8,
+                                    in_channels=matching.feature_channels,
                                     compute_dtype=dtype))
 
 
-@pytest.fixture(scope="module")
-def state_dict():
-    m = MSGCNet(32, 8, 8, generator=torch.Generator().manual_seed(3))
+def _state_dict(in_channels):
+    m = MSGCNet(32, in_channels, 8, generator=torch.Generator().manual_seed(3))
     rng = np.random.default_rng(4)
     with torch.no_grad():
         for bn in m.modules():
@@ -42,17 +43,31 @@ def state_dict():
     return m.state_dict()
 
 
-def test_predict_matches_jax_server(state_dict):
-    """60x120 is no multiple of 32: pad to 64x128 and crop back."""
+@pytest.fixture(scope="module")
+def state_dict():
+    return _state_dict(8)
+
+
+VARIANTS = {"8ch": {}, "16ch": {"num_channels": 16},
+            "raw": {"features_mode": "raw"}}
+
+
+@pytest.mark.parametrize("variant", list(VARIANTS))
+def test_predict_matches_jax_server(variant):
+    """60x120 is no multiple of 32: pad to 64x128 and crop back. The three
+    feature variants, each with the model's in_channels to match."""
     rng = np.random.default_rng(0)
     iml = rng.integers(0, 256, (60, 120), dtype=np.uint8)
     imr = rng.integers(0, 256, (60, 120), dtype=np.uint8)
-    srv = TS.StereoServer(_cfg(), state_dict, device="cpu")
+    cfg = _cfg(matching=MatchingConfig(**VARIANTS[variant]))
+    sd = _state_dict(cfg.model.in_channels)
+    srv = TS.StereoServer(cfg, sd, device="cpu")
     got = srv.predict(iml, imr)
     jcfg = JaxConfig(model=JaxModelConfig(max_disp=32, base_filters=8,
+                                          in_channels=cfg.model.in_channels,
                                           compute_dtype="float32"),
-                     matching=JaxMC())
-    ref = JS.StereoServer(jcfg, convert_state_dict(state_dict, "MS-GCNet")
+                     matching=JaxMC(**VARIANTS[variant]))
+    ref = JS.StereoServer(jcfg, convert_state_dict(sd, "MS-GCNet")
                           ).predict(iml, imr)
     assert got.shape == ref.shape == (60, 120) and got.dtype == np.float32
     np.testing.assert_allclose(got, ref, atol=2e-3)
