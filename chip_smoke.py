@@ -6,12 +6,17 @@ Run from the repository root, with no arguments:
     python3 chip_smoke.py
 
 Phases, each of which fails the run on error:
-  1. device     the card's name and power limit (nvidia-smi);
-  2. build      nvcc builds every kernel of msnets_tpu_torch/csrc/, all at once;
+  1. device     the card's name, power limit and maximum SM clock
+                (nvidia-smi);
+  2. build      nvcc builds every kernel of msnets_tpu_torch/csrc/, and each
+                again with -DMSN_PHASES=1 for phase 9, all at once;
   3. kernel     census_aml against its plain PyTorch version (cost exact, AML
                 atol 1e-6) and census against its plain version (exact), at
-                the serving path's shapes and at edge shapes; then each
-                kernel's time, its plain version's time and its bound;
+                the serving path's shapes and at the tiling's edge shapes;
+                then each kernel's profiler device time (the profiler must
+                see the kernel), its plain version's time and its bound
+                (bytes at HBM rate; popc and exp at 16/clock/SM, the rest
+                at the float32 rate);
   4. features   a known-disparity pair through ms_features on the card, 8 and
                 16 channels: the census-AML channels (left 4, right 12) must
                 peak at the true disparity;
@@ -25,14 +30,19 @@ Phases, each of which fails the run on error:
                 census once per request, census_aml never; timings, a
                 profile and bfloat16 against float32;
   8. serve_raw  the raw-intensity volume (in_channels 2), one request at each
-                size: no kernel launches.
+                size: no kernel launches;
+  9. phases     each kernel's mean time a block in each of its phases
+                (staging, descriptors, passes), from the marks its
+                -DMSN_PHASES=1 build records.
 Then a {"kernels": [...]} line, and as the last line
-{"ok": true, "device": {...}}. Without CUDA, or without the package beside
-this file, it exits non-zero and prints no result.
+{"ok": true, "device": {...}}. Without CUDA, or without the
+package beside this file, it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import ctypes
 import json
+import re
 import subprocess
 import sys
 import time
@@ -44,17 +54,29 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 
 # H100 SXM data-sheet peaks (dense): HBM bandwidth and float32 outside the
-# tensor cores. The bound of a kernel is the larger of bytes/HBM and ops/F32.
+# tensor cores; __popc and the exponential issue at 16 per clock per SM
+# (CUDA C++ Programming Guide, throughput table, compute capability 9.0), at
+# the SM clock nvidia-smi reports. A kernel's bound is the larger of
+# bytes/HBM and its operations at their rates.
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+SFU_OPS_PER_CLOCK_PER_SM = 16
 
 MAIN_SHAPE = (148, 276, 96)         # half-res 128x256 + 10-px pad, D=192/2
 TIMED_SHAPES = [MAIN_SHAPE, (212, 644, 96)]    # the 256x512 and 384x1248 buckets
 KERNEL_CASES = [                    # name, H, W, ndisp, wsize, sigma
     ("main 148x276 D96", 148, 276, 96, 11, 128.0),
     ("kitti 212x644 D96", 212, 644, 96, 11, 128.0),
+    ("ds1 148x276 D192", 148, 276, 192, 11, 128.0),
     ("ragged 45x131 D40", 45, 131, 40, 11, 64.0),
+    ("ragged 37x301 D95 sigma1e18", 37, 301, 95, 11, 1e18),
+    ("D17 21x97", 21, 97, 17, 11, 128.0),
+    ("two chunks 16x400 D300", 16, 400, 300, 11, 1e18),
+    ("past kept 13x600 D560", 13, 600, 560, 11, 128.0),
     ("ndisp>W 30x20 D32", 30, 20, 32, 11, 128.0),
+    ("H=1 1x64 D16", 1, 64, 16, 11, 128.0),
+    ("W=12 one valid col 13x12 D8", 13, 12, 8, 11, 128.0),
+    ("W=11 no valid col 9x11 D8", 9, 11, 8, 11, 128.0),
     ("W=8 12x8 D4", 12, 8, 4, 11, 128.0),
     ("wsize5 33x70 D17", 33, 70, 17, 5, 32.0),
 ]
@@ -82,9 +104,9 @@ def cuda_time_ms(fn, n: int) -> float:
     return start.elapsed_time(end) / n
 
 
-def device_kernel_ms(fn, n: int, names) -> dict:
-    """Device time per call of ``fn`` spent in kernels whose name contains
-    each of ``names``, from torch.profiler (0.0 where it saw none)."""
+def device_kernels_ms(fn, n: int) -> dict:
+    """Device time of ``n`` calls of ``fn`` by kernel name, from
+    torch.profiler: {name: (ms per recorded launch, launches recorded)}."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -92,13 +114,14 @@ def device_kernel_ms(fn, n: int, names) -> dict:
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
-    us = dict.fromkeys(names, 0.0)
+    out = {}
     for e in prof.key_averages():
-        for k in names:
-            if k in e.key:
-                us[k] += getattr(e, "device_time_total", 0.0) or getattr(
-                    e, "cuda_time_total", 0.0)
-    return {k: v / 1e3 / n for k, v in us.items()}
+        t = getattr(e, "self_device_time_total", 0.0) or getattr(
+            e, "self_cuda_time_total", 0.0)
+        if t > 0 and e.device_type.name == "CUDA":
+            ms, count = out.get(e.key, (0.0, 0))
+            out[e.key] = (ms + t / 1e3, count + e.count)
+    return {k: (ms / count, count) for k, (ms, count) in out.items()}
 
 
 def textured_pair(h: int, w: int, shift: int, seed: int):
@@ -118,20 +141,38 @@ def phase_device(state):
         timeout=60, check=True).stdout.strip().splitlines()
     state["smi"] = smi[0].strip()
     log("nvidia-smi:", state["smi"])
+    clock = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.split()[0]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    state["sfu_ops_per_s"] = SFU_OPS_PER_CLOCK_PER_SM * sms * float(clock) * 1e6
+    log(f"SMs {sms}, max SM clock {clock} MHz: __popc and exp at "
+        f"{state['sfu_ops_per_s'] / 1e12:.2f} T/s")
     log("torch", torch.__version__, "cuda", torch.version.cuda, "device",
         torch.cuda.get_device_name(0), "count", torch.cuda.device_count())
 
 
 def phase_build(state):
+    """Every kernel of csrc/, and each again with -DMSN_PHASES=1 for the
+    "phases" phase: one nvcc per library, all started together."""
+    from concurrent.futures import ThreadPoolExecutor
     from msnets_tpu_torch.ops.cuda import _build
     t0 = time.perf_counter()
-    built = _build.build()
+    with ThreadPoolExecutor(2) as pool:
+        jobs = [pool.submit(_build.build, None, d) for d in ((), PHASE_DEFINES)]
+        built = [(name + "".join(f" -D{x}" for x in d), info)
+                 for d, job in zip(((), PHASE_DEFINES), jobs)
+                 for name, info in job.result().items()]
     log(f"build: {len(built)} kernel libraries in "
         f"{time.perf_counter() - t0:.2f} s")
-    for name, info in built.items():
+    for name, info in built:
         log(f"  {name}: {info['seconds']:.2f} s -> {info['path']}")
         for line in info["log"].splitlines():
-            if "registers" in line or "spill" in line or "error" in line:
+            entry = re.search(r"Compiling entry .*?((?:census_aml|census)_tile)ILi(\d+)E", line)
+            if entry:
+                log(f"    {entry[1]}<{entry[2]}>:")
+            elif "registers" in line or "spill" in line or "error" in line:
                 log("   ", line.strip())
 
 
@@ -162,60 +203,134 @@ def phase_kernel(state):
         assert torch.equal(cost, rc), f"{name}: cost channel not exact"
         assert aml_err <= AML_ATOL, f"{name}: AML off by {aml_err}"
         assert torch.equal(raw, rr), f"{name}: census not exact"
-        if W < wsize:
+        if _valid_entries(H, W, D, wsize)[1] == 0:        # all INVALID
             assert bool((cost == 1.0).all()) and bool((aml == 0).all())
             assert bool((raw == INVALID).all())
     state["max_abs_err"] = worst
     for kernel in ("census_aml", "census"):
         for shape in TIMED_SHAPES:
-            t = _time_kernel(kernel, *shape, rng)
+            t = _time_kernel(kernel, *shape, rng, state["sfu_ops_per_s"])
             split = ", ".join(f"{k} {v:.4f}" for k, v in t["by_kernel"].items())
             log(f"{kernel} {shape[0]}x{shape[1]} D{shape[2]}: device "
-                f"{t['ms_device']:.4f} ms/call (profiler: {split}), events "
+                f"{t['ms']:.4f} ms/call (profiler: {split}), events "
                 f"{t['ms_events']:.4f} ms/call (host launches included); "
                 f"plain {t['plain_ms']:.4f} ms; bound {t['bound_ms']:.4f} ms "
-                f"by {t['bound_by']} ({t['bytes'] / 1e6:.1f} MB, "
-                f"{t['ops'] / 1e6:.1f} Mop); {t['ms'] / t['bound_ms']:.2f}x "
-                f"the bound [{state['smi']}]")
+                f"by {t['bound_by']}: bytes {t['bytes_ms']:.4f} ms "
+                f"({t['bytes'] / 1e6:.1f} MB), operations {t['ops_ms']:.4f} ms "
+                f"({t['sfu_ops'] / 1e6:.1f} M popc+exp at 16/clk/SM, "
+                f"{t['alu_ops'] / 1e6:.1f} M other at the float32 rate); "
+                f"{t['ms'] / t['bound_ms']:.2f}x the bound [{state['smi']}]")
             if shape == MAIN_SHAPE:
                 state[kernel] = t
 
 
-def _time_kernel(kernel: str, H: int, W: int, D: int, rng) -> dict:
-    """A kernel's time (profiler device time, else CUDA events), its plain
-    version's time and its bound, on random uint8 images of [H, W]."""
+PHASE_DEFINES = ("MSN_PHASES=1",)
+PHASES = {"census": ("staged", "built", "written"),
+          "census_aml": ("staged", "built", "pass 1", "sum", "written")}
+
+
+def phase_phases(state):
+    """Both kernels built with -DMSN_PHASES=1, called through their C
+    functions (the wrappers' counts stay as they are) five times at each
+    timed shape; from the last call's %globaltimer marks
+    (census_common.cuh), each phase's mean time over the blocks and the
+    launch's span from the first block's start to the last block's end."""
+    import torch
+    from msnets_tpu_torch.ops.cuda import _build, census as C, census_aml as CA
+    rng = np.random.default_rng(2)
+    stream = torch.cuda.current_stream().cuda_stream
+    inv_sigma = float(np.float32(1) / np.float32(128.0))
+    for kernel, names in PHASES.items():
+        lib = _build.load(kernel, PHASE_DEFINES)
+        fn = (CA if kernel == "census_aml" else C)._bind(lib)
+        read = getattr(lib, f"msn_{kernel}_phases")
+        read.argtypes, read.restype = [ctypes.c_void_p], ctypes.c_int
+        for H, W, D in TIMED_SHAPES:
+            a, b = (torch.from_numpy(rng.integers(0, 256, (H, W), dtype=np.uint8)).cuda()
+                    for _ in range(2))
+            out = torch.empty((2, D, H, W), dtype=torch.float32, device="cuda")
+            if kernel == "census_aml":
+                args = (out[0].data_ptr(), out[1].data_ptr(), H, W, D, 11,
+                        inv_sigma, stream)
+            else:
+                args = (out[0].data_ptr(), H, W, D, 11, stream)
+            for _ in range(5):
+                assert fn(a.data_ptr(), b.data_ptr(), *args) == 0
+            torch.cuda.synchronize()
+            marks = np.zeros((8, 16384), np.uint64)
+            assert read(marks.ctypes.data) == 0
+            m = marks[:len(names) + 1].astype(np.int64)
+            t = m - m[0]
+            # blocks that built descriptors in this call (every mark set)
+            fresh = (m[0] > 0) & (t[1:] > 0).all(axis=0)
+            assert fresh.any(), f"{kernel}: no block recorded its phases"
+            steps = []
+            for i, name in enumerate(names, 1):
+                steps.append(f"{name} {np.mean(t[i][fresh] - t[i - 1][fresh]) / 1e3:.2f}")
+            log(f"phases {kernel} {H}x{W} D{D}: mean us a block: "
+                + ", ".join(steps) + f"; span {np.ptp(m[:, fresh]) / 1e3:.2f} us "
+                f"over the {fresh.sum()} blocks that built descriptors "
+                f"[{state['smi']}]")
+
+
+def _valid_entries(H: int, W: int, D: int, wsize: int = 11):
+    """(valid pixels, valid (d, pixel) entries) of the reference mask: rows
+    and cols [wc, n - wsize + wc), d <= c - wc."""
+    rows, cols = max(0, H - wsize), max(0, W - wsize)
+    per_row = sum(min(D, k) for k in range(1, cols + 1))
+    return rows * cols, rows * per_row
+
+
+def _time_kernel(kernel: str, H: int, W: int, D: int, rng,
+                 sfu_ops_per_s: float) -> dict:
+    """A kernel's profiler device time (it must see the kernel), its CUDA-event
+    time, its plain version's time and its bound, on random uint8 images of
+    [H, W]."""
     import torch
     from msnets_tpu_torch.ops.cuda import census as C, census_aml as CA
     a = torch.from_numpy(rng.integers(0, 256, (H, W), dtype=np.uint8)).cuda()
     b = torch.from_numpy(rng.integers(0, 256, (H, W), dtype=np.uint8)).cuda()
+    pixels, entries = _valid_entries(H, W, D)
     if kernel == "census_aml":
         run = lambda: CA.census_aml(a, b, D)                # noqa: E731
         plain = lambda: CA.census_aml_reference(a, b, D)    # noqa: E731
-        names = ("census_aml_planes", "pack_descriptors")
-        # uint8 in, 2x f32 out; per (d, pixel): xor+popc+add over 4 words
-        # (12), AML sub/mul/mul/exp/add/div (6), cost clip/mul (3)
-        out_planes, ops_per = 2, 21
+        name = "census_aml_tile"
+        # uint8 in, 2x f32 out. 4 popc per valid entry, one exp per entry of
+        # a pixel with a valid minimum; 4 xor + 3 add per valid entry, and
+        # per output entry clip (2) and scale (1), AML sub/mul/mul/add/div (5)
+        out_planes = 2
+        sfu = 4 * entries + D * pixels
+        alu = 7 * entries + 8 * D * H * W
     else:
         run = lambda: C.census(a, b, D)                     # noqa: E731
         plain = lambda: C.census_reference(a, b, D)         # noqa: E731
-        names = ("census_cost_planes", "pack_descriptors")
-        out_planes, ops_per = 1, 12     # uint8 in, f32 out; xor+popc+add
+        name = "census_tile"
+        # uint8 in, f32 out; 4 popc, 4 xor + 3 add + convert per valid entry
+        out_planes, sfu, alu = 1, 4 * entries, 8 * entries
     for _ in range(5):
         run()
         plain()
     t = {"ms_events": cuda_time_ms(run, 100),
-         "by_kernel": device_kernel_ms(run, 50, names),
          "plain_ms": cuda_time_ms(plain, 10)}
-    t["ms_device"] = sum(t["by_kernel"].values())
-    t["ms"] = t["ms_device"] or t["ms_events"]
+    # the median of three profiler sessions that recorded at least 45 of the
+    # 50 launches (a session now and then records none or only some)
+    times = []
+    for _ in range(6):
+        seen = device_kernels_ms(run, 50)
+        ours = [(ms, c) for k, (ms, c) in seen.items() if name in k]
+        if len(ours) == 1 and ours[0][1] >= 45:
+            times.append(ours[0][0])
+            t["by_kernel"] = {k: ms for k, (ms, _) in seen.items()}
+        if len(times) == 3:
+            break
+    assert times, f"no profiler session recorded 45 of 50 {name} launches: {seen}"
+    t["ms"] = float(np.median(times))
     t["bytes"] = 2 * H * W + out_planes * D * H * W * 4
-    # the integer and exp operations are counted at the float32 rate, the
-    # only non-tensor-core rate published
-    t["ops"] = ops_per * D * H * W
-    bytes_ms = t["bytes"] / HBM_BYTES_PER_S * 1e3
-    ops_ms = t["ops"] / F32_OPS_PER_S * 1e3
-    t["bound_ms"] = max(bytes_ms, ops_ms)
-    t["bound_by"] = "bytes" if bytes_ms >= ops_ms else "operations"
+    t["sfu_ops"], t["alu_ops"] = sfu, alu
+    t["bytes_ms"] = t["bytes"] / HBM_BYTES_PER_S * 1e3
+    t["ops_ms"] = max(sfu / sfu_ops_per_s, alu / F32_OPS_PER_S) * 1e3
+    t["bound_ms"] = max(t["bytes_ms"], t["ops_ms"])
+    t["bound_by"] = "bytes" if t["bytes_ms"] >= t["ops_ms"] else "operations"
     return t
 
 
@@ -442,7 +557,8 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     state = {}
     phases = [phase_device, phase_build, phase_kernel, phase_features,
-              phase_serve, phase_precision, phase_serve16, phase_serve_raw]
+              phase_serve, phase_precision, phase_serve16, phase_serve_raw,
+              phase_phases]
     for phase in phases:
         t0 = time.perf_counter()
         log(f"== {phase.__name__[6:]}")

@@ -21,7 +21,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Iterable, Optional
+from typing import Dict, Iterable, Optional, Sequence, Tuple
 
 _PKG_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = _PKG_DIR / "csrc"
@@ -31,7 +31,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 DEFAULT_NVCC = Path("/usr/local/cuda/bin/nvcc")   # the toolkit's default
 
-_LIBS: Dict[str, ctypes.CDLL] = {}
+_LIBS: Dict[Tuple[str, Tuple[str, ...]], ctypes.CDLL] = {}
 
 
 def find_nvcc() -> str:
@@ -53,19 +53,26 @@ def kernel_names() -> list:
     return sorted(p.stem for p in CSRC_DIR.glob("*.cu"))
 
 
-def library_path(name: str) -> Path:
+def _flags(defines: Sequence[str]) -> tuple:
+    return NVCC_FLAGS + tuple(f"-D{d}" for d in defines)
+
+
+def library_path(name: str, defines: Sequence[str] = ()) -> Path:
     """Where ``csrc/<name>.cu`` builds to; keyed by the source, the shared
-    headers of ``csrc/`` and the flags."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers of ``csrc/``, the flags and the ``-D`` defines (such as
+    ``MSN_PHASES=1``, census_common.cuh)."""
+    h = hashlib.sha256(" ".join(_flags(defines)).encode())
     for p in [CSRC_DIR / f"{name}.cu"] + sorted(CSRC_DIR.glob("*.cuh")):
         h.update(p.name.encode())
         h.update(p.read_bytes())
     return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 
 
-def build(names: Optional[Iterable[str]] = None) -> Dict[str, dict]:
+def build(names: Optional[Iterable[str]] = None,
+          defines: Sequence[str] = ()) -> Dict[str, dict]:
     """Compile the named kernels (all of ``csrc/`` by default) that are not
-    built yet, one ``nvcc`` per source, all started together.
+    built yet, with ``defines``, one ``nvcc`` per source, all started
+    together.
 
     Returns ``{name: {"path", "seconds", "log"}}``; ``log`` holds nvcc's
     ``-Xptxas -v`` report (registers, spills) for each library built here.
@@ -74,14 +81,14 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, dict]:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     out, running = {}, []
     for name in names:
-        src, dst = CSRC_DIR / f"{name}.cu", library_path(name)
+        src, dst = CSRC_DIR / f"{name}.cu", library_path(name, defines)
         if not src.is_file():
             raise FileNotFoundError(src)
         if dst.is_file():
             out[name] = {"path": str(dst), "seconds": 0.0, "log": "cached"}
             continue
         tmp = dst.with_suffix(f".so.tmp{os.getpid()}")
-        cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+        cmd = [find_nvcc(), *_flags(defines), "-o", str(tmp), str(src)]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT, text=True)
         running.append((name, dst, tmp, proc, time.perf_counter()))
@@ -100,10 +107,12 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, dict]:
     return out
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The shared library of ``csrc/<name>.cu``, built first if needed."""
-    lib = _LIBS.get(name)
+def load(name: str, defines: Sequence[str] = ()) -> ctypes.CDLL:
+    """The shared library of ``csrc/<name>.cu`` (with ``defines``), built
+    first if needed."""
+    key = (name, tuple(defines))
+    lib = _LIBS.get(key)
     if lib is None:
-        path = Path(build([name])[name]["path"])
-        lib = _LIBS[name] = ctypes.CDLL(str(path))
+        path = Path(build([name], defines)[name]["path"])
+        lib = _LIBS[key] = ctypes.CDLL(str(path))
     return lib

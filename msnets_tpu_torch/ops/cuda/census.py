@@ -57,14 +57,19 @@ def census_reference(iml: torch.Tensor, imr: torch.Tensor, ndisp: int,
     return M.census(iml, imr, ndisp, wsize).permute(2, 0, 1).contiguous()
 
 
-@functools.cache
-def _kernel_fn():
-    """``msn_census`` of the built library, with its C signature."""
-    fn = _build.load("census").msn_census
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [
+def _bind(lib: ctypes.CDLL):
+    """``msn_census`` of a built ``lib``, with its C signature."""
+    fn = lib.msn_census
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+@functools.cache
+def _kernel_fn():
+    """``msn_census`` of the built library."""
+    return _bind(_build.load("census"))
 
 
 def census(iml: torch.Tensor, imr: torch.Tensor, ndisp: int,
@@ -80,13 +85,11 @@ def census(iml: torch.Tensor, imr: torch.Tensor, ndisp: int,
     H, W = iml.shape
     fn = _kernel_fn()
     with torch.cuda.device(iml.device):
-        dl = torch.empty((H, W, 4), dtype=torch.int32, device=iml.device)
-        dr = torch.empty_like(dl)
         cost = torch.empty((ndisp, H, W), dtype=torch.float32,
                            device=iml.device)
         stream = torch.cuda.current_stream(iml.device).cuda_stream
-        err = fn(iml.data_ptr(), imr.data_ptr(), dl.data_ptr(),
-                 dr.data_ptr(), cost.data_ptr(), H, W, ndisp, wsize, stream)
+        err = fn(iml.data_ptr(), imr.data_ptr(), cost.data_ptr(), H, W, ndisp,
+                 wsize, stream)
     if err != 0:
         raise RuntimeError(f"census kernel launch failed: CUDA error {err} "
                            f"(H={H}, W={W}, ndisp={ndisp})")

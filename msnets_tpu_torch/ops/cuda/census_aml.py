@@ -39,14 +39,19 @@ def census_aml_reference(iml: torch.Tensor, imr: torch.Tensor, ndisp: int,
     return cost.contiguous(), aml.contiguous()
 
 
-@functools.cache
-def _kernel_fn():
-    """``msn_census_aml`` of the built library, with its C signature."""
-    fn = _build.load("census_aml").msn_census_aml
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [
+def _bind(lib: ctypes.CDLL):
+    """``msn_census_aml`` of a built ``lib``, with its C signature."""
+    fn = lib.msn_census_aml
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
         ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+@functools.cache
+def _kernel_fn():
+    """``msn_census_aml`` of the built library."""
+    return _bind(_build.load("census_aml"))
 
 
 def census_aml(iml: torch.Tensor, imr: torch.Tensor, ndisp: int,
@@ -63,15 +68,12 @@ def census_aml(iml: torch.Tensor, imr: torch.Tensor, ndisp: int,
     H, W = iml.shape
     fn = _kernel_fn()
     with torch.cuda.device(iml.device):
-        dl = torch.empty((H, W, 4), dtype=torch.int32, device=iml.device)
-        dr = torch.empty_like(dl)
         cost = torch.empty((ndisp, H, W), dtype=torch.float32,
                            device=iml.device)
         aml = torch.empty_like(cost)
         stream = torch.cuda.current_stream(iml.device).cuda_stream
-        err = fn(iml.data_ptr(), imr.data_ptr(), dl.data_ptr(),
-                 dr.data_ptr(), cost.data_ptr(), aml.data_ptr(),
-                 H, W, ndisp, wsize,
+        err = fn(iml.data_ptr(), imr.data_ptr(), cost.data_ptr(),
+                 aml.data_ptr(), H, W, ndisp, wsize,
                  float(np.float32(1) / np.float32(sigma)), stream)
     if err != 0:
         raise RuntimeError(f"census_aml kernel launch failed: CUDA error "

@@ -52,7 +52,8 @@ def test_reference_matches_pallas_interpret(shape, ndisp, tile, sigma):
 
 
 @pytest.mark.parametrize("shape,ndisp,tile,sigma", CASES + [
-    ((24, 20), 32, 8, 128.0)])              # ndisp > W
+    ((24, 20), 32, 8, 128.0),               # ndisp > W
+    ((24, 40), 17, 8, 1e18)])               # INVALID entries weigh ~0.01
 def test_reference_matches_xla(shape, ndisp, tile, sigma):
     a, b = _pair(shape)
     cost, aml = census_aml(torch.from_numpy(a), torch.from_numpy(b), ndisp,

@@ -38,8 +38,17 @@ def _pair(shape, seed):
 
 @pytest.mark.parametrize("H,W,ndisp,wsize,sigma", [
     (148, 276, 96, 11, 128.0),     # serving path, 256x512 bucket
-    (45, 131, 40, 11, 64.0),       # rows that divide no block
+    (148, 276, 192, 11, 128.0),    # ndisp of ds_scale 1
+    (45, 131, 40, 11, 64.0),       # rows and columns that divide no tile
+    (21, 97, 17, 11, 128.0),       # ndisp not a multiple of the warp split
+    (37, 301, 95, 11, 128.0),
+    (37, 301, 95, 11, 1e18),       # INVALID entries weigh ~0.01 each
+    (16, 400, 300, 11, 1e18),      # right descriptors in two chunks
+    (13, 600, 560, 11, 128.0),     # distances kept past shared memory
     (30, 20, 32, 11, 128.0),       # ndisp > W
+    (1, 64, 16, 11, 128.0),        # H = 1: all INVALID
+    (13, 12, 8, 11, 128.0),        # W = 12: one valid column
+    (9, 11, 8, 11, 128.0),         # W = 11: no valid column
     (12, 8, 4, 11, 128.0),         # W < window: all INVALID
     (1, 1, 1, 11, 128.0),
     (33, 70, 17, 5, 32.0),         # a smaller window
@@ -55,7 +64,7 @@ def test_census_aml_kernel_matches_plain(cuda, H, W, ndisp, wsize, sigma):
     assert torch.equal(cost, rc)
     # only the order of the sum over d differs from the plain version
     assert (aml - ra).abs().max().item() <= 1e-6
-    if W < wsize:
+    if W <= wsize or H <= wsize:                     # no valid pixel
         assert bool((cost == 1.0).all()) and bool((aml == 0).all())
 
 
@@ -113,8 +122,16 @@ def test_server_on_the_card_matches_the_cpu(cuda, variant):
 @pytest.mark.parametrize("H,W,ndisp,wsize", [
     (148, 276, 96, 11),     # serving path, 256x512 bucket
     (212, 644, 96, 11),     # serving path, 384x1248 bucket
-    (45, 131, 40, 11),      # rows and disparities that divide no block
+    (148, 276, 192, 11),    # ndisp of ds_scale 1
+    (45, 131, 40, 11),      # rows and disparities that divide no tile
+    (21, 97, 17, 11),       # ndisp not a multiple of the warp split
+    (37, 301, 95, 11),
+    (16, 400, 300, 11),     # right descriptors in two chunks
+    (13, 600, 560, 11),     # right descriptors in three chunks
     (30, 20, 32, 11),       # ndisp > W
+    (1, 64, 16, 11),        # H = 1: all INVALID
+    (13, 12, 8, 11),        # W = 12: one valid column
+    (9, 11, 8, 11),         # W = 11: no valid column
     (12, 8, 4, 11),         # W < window: all INVALID
     (1, 1, 1, 11),
     (33, 70, 17, 5),        # a smaller window
