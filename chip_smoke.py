@@ -12,7 +12,8 @@ Phases, each of which fails the run on error:
                 again with -DMSN_PHASES=1 for phase 9, all at once;
   3. kernel     census_aml against its plain PyTorch version (cost exact, AML
                 atol 1e-6) and census against its plain version (exact), at
-                the serving path's shapes and at the tiling's edge shapes;
+                the serving and training paths' shapes and at the tiling's
+                edge shapes;
                 then each kernel's profiler device time (the profiler must
                 see the kernel), its plain version's time and its bound
                 (bytes at HBM rate; popc and exp at 16/clock/SM, the rest
@@ -33,7 +34,25 @@ Phases, each of which fails the run on error:
                 size: no kernel launches;
   9. phases     each kernel's mean time a block in each of its phases
                 (staging, descriptors, passes), from the marks its
-                -DMSN_PHASES=1 build records.
+                -DMSN_PHASES=1 build records;
+ 10. train      the reference recipe, Config() (MS-GCNet, F=32, max_disp
+                192, crop 256x512 with margins: 280x704 uint8 crops, batch
+                2, bfloat16, Adam lr 1e-3), seeded random weights, 8 steps on
+                one synthetic batch of known disparity: every loss finite,
+                the last below the first, census_aml twice a step; ms/step
+                (CUDA events, median of steps 3-8) and peak memory. Then one
+                step of the 16-channel configuration at batch 1 (census
+                once) and one with grad_accum=2 at batch 2;
+ 11. checkpoint a step checkpoint written in the background while the next
+                step runs, loaded into a fresh Trainer: parameters, BN
+                statistics, Adam moments and steps equal bit for bit; one
+                step after the resume equals the step the trainer took
+                (cuDNN's deterministic algorithms on for this phase);
+                StereoServer.from_checkpoint of an epoch file serves a
+                256x512 pair as the server of the same state_dict does;
+ 12. stream     predict_stream over 16 requests at 256x512, depth 2: each
+                result equals predict's, census_aml once a request; pairs/s
+                of the stream and of a predict loop.
 Then a {"kernels": [...]} line, and as the last line
 {"ok": true, "device": {...}}. Without CUDA, or without the
 package beside this file, it exits non-zero and prints no result.
@@ -41,8 +60,10 @@ package beside this file, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import json
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -68,6 +89,9 @@ KERNEL_CASES = [                    # name, H, W, ndisp, wsize, sigma
     ("main 148x276 D96", 148, 276, 96, 11, 128.0),
     ("kitti 212x644 D96", 212, 644, 96, 11, 128.0),
     ("ds1 148x276 D192", 148, 276, 192, 11, 128.0),
+    # the train path: 280x704 crops (8ch) and 280x896 (16ch) at half res
+    ("train 140x352 D96", 140, 352, 96, 11, 128.0),
+    ("train16 140x448 D96", 140, 448, 96, 11, 128.0),
     ("ragged 45x131 D40", 45, 131, 40, 11, 64.0),
     ("ragged 37x301 D95 sigma1e18", 37, 301, 95, 11, 1e18),
     ("D17 21x97", 21, 97, 17, 11, 128.0),
@@ -459,21 +483,21 @@ def phase_serve(state):
     server, sd, launches, il, ir = _serve(
         state, "serve", cfg, requests, {"census_aml": 1, "census": 0},
         (20, 5))
-    state["launches"] = {"census_aml": launches["census_aml"]}
+    state["launches_by_path"]["serve"] = launches
     state["state_dict"] = sd
     state["server"] = server
-    _profile("serve", server, il, ir)
+    _profile("serve 256x512 forward", lambda: server.forward(il, ir))
 
 
-def _profile(tag, server, il, ir):
-    """Device time by kernel for one 256x512 forward, and the device's busy
+def _profile(tag, fn):
+    """Device time by kernel for one call of ``fn``, and the device's busy
     share of the wall time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        server.forward(il, ir)
+        fn()
         torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
     rows = []
@@ -484,7 +508,7 @@ def _profile(tag, server, il, ir):
             rows.append((us, e.count, e.key))
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows) / 1e3
-    log(f"{tag} profile 256x512 forward: device busy {busy:.3f} ms of "
+    log(f"{tag} profile: device busy {busy:.3f} ms of "
         f"{wall_ms:.3f} ms wall (profiler on), {len(rows)} kernel names")
     for us, cnt, key in rows[:12]:
         log(f"  {us / 1e3:9.3f} ms  x{cnt:<5d} {key[:90]}")
@@ -526,8 +550,8 @@ def phase_serve16(state):
     server, sd, launches, il, ir = _serve(
         state, "serve16", cfg, requests, {"census_aml": 0, "census": 1},
         (20, 5))
-    state["launches"]["census"] = launches["census"]
-    _profile("serve16", server, il, ir)
+    state["launches_by_path"]["serve16"] = launches
+    _profile("serve16 256x512 forward", lambda: server.forward(il, ir))
     _precision("precision16", server, sd)
 
 
@@ -536,8 +560,234 @@ def phase_serve_raw(state):
     cfg = Config(matching=MatchingConfig(features_mode="raw"),
                  model=ModelConfig(in_channels=2))
     requests = [textured_pair(256, 512, 32, 30), textured_pair(375, 1242, 40, 31)]
-    _serve(state, "serve_raw", cfg, requests, {"census_aml": 0, "census": 0},
-           (10, 3))
+    _, _, launches, _, _ = _serve(state, "serve_raw", cfg, requests,
+                                  {"census_aml": 0, "census": 0}, (10, 3))
+    state["launches_by_path"]["serve_raw"] = launches
+
+
+CKPT_DIR = ROOT / "build" / "chip_smoke_checkpoints"
+TRAIN_STEPS = 8
+TRAIN_SHIFT = 24          # the synthetic batch's disparity, px
+
+
+def _train_cfg(**train):
+    """Config() with its checkpoints under build/ and ``train`` replaced."""
+    from msnets_tpu_torch import Config
+    cfg = Config()
+    return dataclasses.replace(cfg, train=dataclasses.replace(
+        cfg.train, checkpoint_dir=str(CKPT_DIR), **train))
+
+
+def _train_batch(cfg, seed):
+    from msnets_tpu_torch.data.pipeline import synthetic_train_batch
+    t = cfg.train
+    return synthetic_train_batch(t.crop_height, t.crop_width,
+                                 cfg.model.max_disp, cfg.matching,
+                                 t.batch_size, TRAIN_SHIFT, seed,
+                                 cfg.matching.left_only)
+
+
+def _step(trainer, batch, lr=1e-3):
+    fn = trainer.step_fn(batch["board_h"], batch["board_w_left"],
+                         batch["board_w_right"])
+    return fn(batch["iml"], batch["imr"], batch["disp"], lr)
+
+
+def _one_step(state, tag, cfg, want):
+    """One step of a fresh trainer of ``cfg``; checks the loss and the
+    launches of each kernel (``want``)."""
+    import torch
+    from msnets_tpu_torch.engine import Trainer
+    tr = Trainer(cfg, seed=1)
+    batch = _train_batch(cfg, 5)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    m, d = _step(tr, batch)
+    loss = float(m["loss"])
+    launches = _counts()
+    log(f"{tag}: crops {batch['iml'].shape} uint8, loss {loss:.4f}, "
+        f"disparity {tuple(d.shape)}, launches {launches}, peak device "
+        f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+        f"[{state['smi']}]")
+    assert np.isfinite(loss) and tuple(d.shape) == batch["disp"].shape
+    assert launches == want, (launches, want)
+    return launches
+
+
+def phase_train(state):
+    import torch
+    from msnets_tpu_torch.engine import Trainer
+    cfg = _train_cfg()
+    t, mdl = cfg.train, cfg.model
+    assert (mdl.name, mdl.max_disp, mdl.base_filters, mdl.compute_dtype,
+            t.crop_height, t.crop_width, t.batch_size, t.lr, t.grad_accum) == \
+        ("MS-GCNet", 192, 32, "bfloat16", 256, 512, 2, 1e-3, 1)
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    tr = Trainer(cfg, seed=0)                       # default device: the GPU
+    assert tr.device.type == "cuda"
+    batch = _train_batch(cfg, 4)
+    assert batch["iml"].shape == (2, 280, 704), batch["iml"].shape
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses = []
+    events = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True)) for _ in range(TRAIN_STEPS)]
+    _reset_counts()                                 # main path starts here
+    for start, end in events:
+        start.record()
+        m, _ = _step(tr, batch)
+        end.record()
+        losses.append(float(m["loss"]))
+    launches = _counts()                            # main path ends here
+    torch.cuda.synchronize()
+    ms = [s.elapsed_time(e) for s, e in events]
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log("train: losses " + ", ".join(f"{x:.4f}" for x in losses))
+    log("train: ms/step " + ", ".join(f"{x:.1f}" for x in ms))
+    step_ms = float(np.median(ms[2:]))
+    log(f"train 256x512 batch 2 bf16: {step_ms:.3f} ms/step (median of steps "
+        f"3-{TRAIN_STEPS}, CUDA events), peak device memory {peak:.2f} GiB, "
+        f"kernel launches {launches} in {TRAIN_STEPS} steps "
+        f"({launches['census_aml'] / TRAIN_STEPS:g} census_aml a step) "
+        f"[{state['smi']}]")
+    assert np.isfinite(losses).all(), losses
+    assert losses[-1] < losses[0], losses
+    assert launches == {"census_aml": 2 * TRAIN_STEPS, "census": 0}, launches
+    _profile("train step 256x512 batch 2", lambda: _step(tr, batch))
+    state.update(trainer=tr, train_batch=batch)
+    state["launches_by_path"]["train"] = launches
+
+    from msnets_tpu_torch import MatchingConfig, ModelConfig
+    cfg16 = dataclasses.replace(
+        _train_cfg(batch_size=1), matching=MatchingConfig(num_channels=16),
+        model=ModelConfig(in_channels=16))
+    state["launches_by_path"]["train16"] = _one_step(
+        state, "train16 batch 1", cfg16, {"census_aml": 0, "census": 1})
+    state["launches_by_path"]["train_accum2"] = _one_step(
+        state, "train grad_accum=2 batch 2", _train_cfg(grad_accum=2),
+        {"census_aml": 2, "census": 0})
+
+
+def _state_equal(a, b) -> bool:
+    """Bitwise equality of two Trainers' state: every model tensor (BN
+    statistics and num_batches_tracked too), the Adam moments and steps, and
+    the step count."""
+    import torch
+    sa, sb = a.state(), b.state()
+    if sa["step"] != sb["step"] or sa["state_dict"].keys() != sb["state_dict"].keys():
+        return False
+    for k, v in sa["state_dict"].items():
+        if not torch.equal(v, sb["state_dict"][k]):
+            log(f"  differs: {k}")
+            return False
+    oa, ob = sa["optimizer"]["state"], sb["optimizer"]["state"]
+    return oa.keys() == ob.keys() and all(
+        torch.equal(oa[i][k].cpu(), ob[i][k].cpu()) for i in oa for k in oa[i])
+
+
+def phase_checkpoint(state):
+    import copy
+    import torch
+    from msnets_tpu_torch import StereoServer
+    from msnets_tpu_torch.engine import Trainer
+    tr, batch = state.pop("trainer"), state.pop("train_batch")
+    cfg = tr.cfg
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        saved = Trainer(cfg, seed=2)
+        saved.model.load_state_dict(tr.model.state_dict())
+        saved.optimizer.load_state_dict(copy.deepcopy(tr.optimizer.state_dict()))
+        saved.step = n = tr.step
+        t0 = time.perf_counter()
+        path = tr.save_step(1, n)
+        save_ms = (time.perf_counter() - t0) * 1e3
+        m_next, _ = _step(tr, batch)              # in place, during the write
+        loss_next = float(m_next["loss"])
+        t0 = time.perf_counter()
+        tr.finish_checkpoints()
+        log(f"checkpoint: save_step returned in {save_ms:.2f} ms, the write "
+            f"finished {(time.perf_counter() - t0) * 1e3:.2f} ms after the "
+            f"next step; {Path(path).name} {Path(path).stat().st_size / 2**20:.1f} MiB")
+        fresh = Trainer(cfg, seed=3)
+        meta = fresh.resume(path)
+        assert meta == {"epoch": 1, "iteration": n}, meta
+        assert _state_equal(saved, fresh), "resumed state is not the saved one"
+        assert int(fresh.model.conv3dbn_1[1].num_batches_tracked) == n
+        log(f"checkpoint: resumed state equals the saved one bit for bit "
+            f"(step {fresh.step}, {len(fresh.optimizer.state)} Adam states)")
+        m_res, _ = _step(fresh, batch)
+        loss_res = float(m_res["loss"])
+        same = _state_equal(tr, fresh)
+        log(f"checkpoint: the step after the resume: loss {loss_res:.6f} "
+            f"against {loss_next:.6f}; state bit for bit equal: {same}")
+        assert loss_res == loss_next and same
+    finally:
+        torch.backends.cudnn.deterministic = prev
+
+    path = tr.maybe_save(2, {"loss": loss_next, "epe": 0.0, "accu3": 0.0,
+                             "batches": 1})
+    tr.finish_checkpoints()
+    l, r = textured_pair(256, 512, 32, 40)
+    got = StereoServer.from_checkpoint(cfg, path).predict(l, r)
+    want = StereoServer(cfg, tr.model.state_dict()).predict(l, r)
+    _check_disp(got, (256, 512), cfg.model.max_disp)
+    log(f"checkpoint: from_checkpoint({Path(path).name}) serves 256x512, "
+        f"max |d disparity| against the trainer's state_dict "
+        f"{np.abs(got - want).max():.3g} px")
+    assert np.array_equal(got, want)
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+
+
+STREAM_REQUESTS = 16
+
+
+def phase_stream(state):
+    import torch
+    from msnets_tpu_torch import Config, StereoServer
+    server = StereoServer(Config(), state["state_dict"], depth=2)
+    server.warmup([(256, 512)])
+    pairs = [textured_pair(256, 512, 16 + 4 * i, 50 + i)
+             for i in range(STREAM_REQUESTS)]
+    # cuDNN's transposed-convolution algorithms may sum in a run-dependent
+    # order: the stream is held to predict bit for bit with the
+    # deterministic ones
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        _reset_counts()                             # main path starts here
+        got = list(server.predict_stream(iter(pairs)))
+        launches = _counts()                        # main path ends here
+        want = [server.predict(l, r) for l, r in pairs]
+    finally:
+        torch.backends.cudnn.deterministic = prev
+    assert launches == {"census_aml": STREAM_REQUESTS, "census": 0}, launches
+    state["launches_by_path"]["stream"] = launches
+    assert len(got) == STREAM_REQUESTS
+    for d, w in zip(got, want):
+        _check_disp(d, (256, 512), 192)
+        assert np.array_equal(d, w), "stream != predict"
+    log(f"stream: {STREAM_REQUESTS} results equal predict's in input order; "
+        f"launches {launches}")
+
+    def loop():
+        return [server.predict(l, r) for l, r in pairs]
+
+    def stream():
+        return list(server.predict_stream(iter(pairs)))
+
+    rates = {"predict": [], "stream": []}
+    for name, fn in (("predict", loop), ("stream", stream),
+                     ("stream", stream), ("predict", loop)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        rates[name].append(STREAM_REQUESTS / (time.perf_counter() - t0))
+    for name, r in rates.items():
+        log(f"stream 256x512 {name}: " + ", ".join(f"{x:.2f}" for x in r)
+            + f" pairs/s over {STREAM_REQUESTS} requests (host clock, "
+            f"depth 2) [{state['smi']}]")
 
 
 def main() -> int:
@@ -555,10 +805,10 @@ def main() -> int:
               "run it from a checkout of the repository", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
-    state = {}
+    state = {"launches_by_path": {}}
     phases = [phase_device, phase_build, phase_kernel, phase_features,
               phase_serve, phase_precision, phase_serve16, phase_serve_raw,
-              phase_phases]
+              phase_phases, phase_train, phase_checkpoint, phase_stream]
     for phase in phases:
         t0 = time.perf_counter()
         log(f"== {phase.__name__[6:]}")
@@ -580,9 +830,13 @@ def main() -> int:
     kernels = []
     for name, (source, replaces) in sources.items():
         t = state[name]
+        # each main path's launches, counted from 0 just before it
+        by_path = {path: n[name]
+                   for path, n in state["launches_by_path"].items()}
         kernels.append({
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": state["launches"][name],
+            "replaces": replaces, "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
             "max_abs_err": state["max_abs_err"][name], "ms": t["ms"],
             "kernel_ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],

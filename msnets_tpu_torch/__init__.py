@@ -2,9 +2,11 @@
 
 Entry points run on the GPU unless the caller passes ``device="cpu"``.
 """
-from .config import INVALID, Config, MatchingConfig, ModelConfig
+from .config import (INVALID, Config, DataConfig, MatchingConfig, ModelConfig,
+                     TrainConfig)
+from .engine import Trainer
 from .models import MSGCNet, build_model
 from .serve import StereoServer
 
-__all__ = ["INVALID", "Config", "MatchingConfig", "ModelConfig", "MSGCNet",
-           "build_model", "StereoServer"]
+__all__ = ["INVALID", "Config", "DataConfig", "MatchingConfig", "ModelConfig",
+           "TrainConfig", "MSGCNet", "Trainer", "build_model", "StereoServer"]

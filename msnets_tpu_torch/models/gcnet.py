@@ -9,6 +9,15 @@ volume (reference GCNet_CostVolumeAggre):
     head:    ConvTranspose3d(F -> 1, stride 2) restoring full D, H, W,
              softmax over D (float32) and soft-argmin
 
+Parameters are float32; ``compute_dtype`` is the dtype of the convolutions
+(the input volume and each kernel are cast to it), while BN statistics and
+the softmax stay float32: the JAX train step's placement. The head runs in
+``compute_dtype`` in train mode and in float32 in eval mode (the server's
+float32 head). deconv5's bias stays out of the graph, as in the JAX head
+(``SubpixelSoftArgminHead`` accepts it and never reads it): it shifts every
+logit equally and cancels in the softmax, so leaving it out changes no
+output, and its gradient is exactly 0, so Adam leaves it as it is.
+
 Submodule names follow the reference checkpoint (``conv3dbn_1.0.weight``,
 ``block_3d_2.convbn_3d_3.1.running_var``, ``deconv5.bias``, ...), so a
 reference state_dict loads as it is and
@@ -29,10 +38,12 @@ from .layers import Conv3DBlock, ConvBN3D, DeconvBN3D, he_normal_, soft_argmin
 class MSGCNet(nn.Module):
     def __init__(self, max_disp: int = 192, in_channels: int = 8,
                  num_filters: int = 32,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 compute_dtype: torch.dtype = torch.float32):
         super().__init__()
         Fn = num_filters
         self.max_disp = max_disp
+        self.compute_dtype = compute_dtype
         self.conv3dbn_1 = ConvBN3D(in_channels, Fn)
         self.conv3dbn_2 = ConvBN3D(Fn, Fn)
         self.block_3d_1 = Conv3DBlock(Fn, 2 * Fn)
@@ -61,8 +72,8 @@ class MSGCNet(nn.Module):
 
     def forward(self, cv: torch.Tensor) -> torch.Tensor:
         """cv: [N, C, D_in, H_in, W_in] -> disparity [N, 2*H_in, 2*W_in]
-        (float32). The head runs in deconv5's dtype, float32 in serving."""
-        x = F.relu(self.conv3dbn_1(cv))
+        (float32)."""
+        x = F.relu(self.conv3dbn_1(cv.to(self.compute_dtype)))
         res_l20 = x = F.relu(self.conv3dbn_2(x))
         res_l23 = x = self.block_3d_1(x)
         res_l26 = x = self.block_3d_2(x)
@@ -72,5 +83,8 @@ class MSGCNet(nn.Module):
         x = F.relu(self.deconvbn2(x) + res_l26)
         x = F.relu(self.deconvbn3(x) + res_l23)
         x = F.relu(self.deconvbn4(x) + res_l20)
-        logits = self.deconv5(x.to(self.deconv5.weight.dtype)).squeeze(1)
+        hd = self.compute_dtype if self.training else torch.float32
+        logits = F.conv_transpose3d(x.to(hd), self.deconv5.weight.to(hd),
+                                    None, stride=2, padding=1,
+                                    output_padding=1).squeeze(1)
         return soft_argmin(logits, self.max_disp)

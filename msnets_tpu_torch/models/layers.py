@@ -2,13 +2,21 @@
 ``msnets_tpu/models/layers.py``).
 
 The port carries the JAX layers' math, not their TPU layouts: the packed
-space-to-depth convolutions, ``PackedPhaseBN``, the pz-slab head, the W-fold
-and the int8 paths exist there only for the TPU matrix unit's lane layout.
-Here a conv is ``nn.Conv3d(k3, p1)``, a deconv
-``nn.ConvTranspose3d(k3, s2, p1, output_padding=1)`` and BN
-``nn.BatchNorm3d(eps=1e-5, momentum=0.1)``, with the reference checkpoint's
+space-to-depth convolutions, the phase packing of ``PackedPhaseBN``, the
+pz-slab head, the W-fold and the int8 paths exist there only for the TPU
+matrix unit's lane layout. Here a conv is ``nn.Conv3d(k3, p1)``, a deconv
+``nn.ConvTranspose3d(k3, s2, p1, output_padding=1)`` and BN a
+``BatchNorm3d(eps=1e-5, momentum=0.1)``, with the reference checkpoint's
 module names (a ConvBN3D is ``Sequential(conv, bn)``, keys ``.0.weight``,
-``.1.running_var``).
+``.1.running_var``, ``.1.num_batches_tracked``).
+
+Parameters are float32. ConvBN3D and DeconvBN3D cast their kernel to the
+input's dtype, so a float32 model computes in bfloat16 when its input is
+bfloat16 (the JAX train path's dtype placement, without ``autocast``).
+
+Train-mode BN has the JAX package's semantics (``BatchNorm3d``): batch
+statistics in float32 with the *biased* variance, which also feeds the
+running variance, where ``nn.BatchNorm3d`` feeds the unbiased one.
 
 Eval folds BN into the preceding conv or deconv (``fold_batchnorm``), in
 float32, as the JAX eval path does: y = conv(x, k*a) + (beta - mu*a) with
@@ -23,6 +31,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..ops.matchers import _div_const
+
 
 def he_normal_(weight: torch.Tensor, out_channels: int,
                generator: Optional[torch.Generator] = None) -> torch.Tensor:
@@ -32,8 +42,81 @@ def he_normal_(weight: torch.Tensor, out_channels: int,
         return weight.normal_(0.0, math.sqrt(2.0 / n), generator=generator)
 
 
-def _bn(cout: int) -> nn.BatchNorm3d:
-    return nn.BatchNorm3d(cout, eps=1e-5, momentum=0.1)
+def _bcast(v: torch.Tensor, ndim: int) -> torch.Tensor:
+    """A per-channel vector [C] shaped to broadcast over [N, C, ...]."""
+    return v.view((1, -1) + (1,) * (ndim - 2))
+
+
+class _BatchNormTrain(torch.autograd.Function):
+    """Batch-statistics normalization with the JAX package's forward and
+    hand-written backward (``msnets_tpu/models/layers.py:_phase_bn_fwd``,
+    ``_phase_bn_bwd``).
+
+    Forward: mean and E[x^2] summed in float32 straight off the input,
+    var = E[x^2] - mean^2 (biased), and the affine in the input's dtype.
+    Returns (out, mean, var); mean and var feed the running averages only
+    and take no gradient. Backward saves the input in its own dtype and the
+    per-channel (mean, rinv), not a float32 copy of the volume."""
+
+    @staticmethod
+    def forward(ctx, y, scale, bias, eps: float):
+        red = [0] + list(range(2, y.dim()))
+        n = y.numel() // y.shape[1]
+        mean = _div_const(y.sum(red, dtype=torch.float32), n)
+        sq = _div_const(y.float().square().sum(red), n)
+        var = sq - mean * mean
+        rinv = torch.rsqrt(var + eps)
+        a = rinv * scale
+        b = bias - mean * rinv * scale
+        out = y * _bcast(a.to(y.dtype), y.dim()) + _bcast(b.to(y.dtype), y.dim())
+        ctx.save_for_backward(y, scale, mean, rinv)
+        ctx.n = n
+        ctx.mark_non_differentiable(mean, var)
+        return out, mean, var
+
+    @staticmethod
+    def backward(ctx, g, _g_mean, _g_var):
+        y, scale, mean, rinv = ctx.saved_tensors
+        red = [0] + list(range(2, y.dim()))
+        nd, n = y.dim(), ctx.n
+        sg = g.sum(red, dtype=torch.float32)
+        sgx = (g.float() * (y.float() - _bcast(mean, nd))
+               * _bcast(rinv, nd)).sum(red)
+        # dL/dy = gamma*rinv * (g - (sg + xhat*sgx)/n) = a1*g + c1*y + c0
+        a1 = scale * rinv
+        c1 = _div_const(-scale * rinv * rinv * sgx, n)
+        c0 = _div_const(-a1 * sg, n) - c1 * mean
+        dy = (g * _bcast(a1.to(g.dtype), nd) + y * _bcast(c1.to(y.dtype), nd)
+              + _bcast(c0.to(g.dtype), nd))
+        return dy, sgx, sg, None
+
+
+class BatchNorm3d(nn.BatchNorm3d):
+    """``nn.BatchNorm3d`` whose train mode follows the JAX package
+    (``PackedPhaseBN``, flax momentum 0.9 = torch momentum 0.1):
+
+        mean, var = batch mean and *biased* variance (float32)
+        running_mean = 0.9 * running_mean + 0.1 * mean
+        running_var  = 0.9 * running_var  + 0.1 * var
+
+    where ``nn.BatchNorm3d`` puts the unbiased variance into running_var.
+    ``num_batches_tracked`` counts as in torch. Eval mode is torch's."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        out, mean, var = _BatchNormTrain.apply(x, self.weight, self.bias,
+                                               self.eps)
+        m = self.momentum
+        with torch.no_grad():
+            self.running_mean.copy_((1 - m) * self.running_mean + m * mean)
+            self.running_var.copy_((1 - m) * self.running_var + m * var)
+            self.num_batches_tracked.add_(1)
+        return out
+
+
+def _bn(cout: int) -> BatchNorm3d:
+    return BatchNorm3d(cout, eps=1e-5, momentum=0.1)
 
 
 class ConvBN3D(nn.Sequential):
@@ -42,6 +125,10 @@ class ConvBN3D(nn.Sequential):
     def __init__(self, cin: int, cout: int, stride: int = 1):
         super().__init__(nn.Conv3d(cin, cout, 3, stride=stride, padding=1,
                                    bias=False), _bn(cout))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        conv, bn = self[0], self[1]
+        return bn(F.conv3d(x, conv.weight.to(x.dtype), None, conv.stride, 1))
 
     def folded(self) -> nn.Conv3d:
         """Eval conv with the BN affine folded into kernel and bias (f32)."""
@@ -64,6 +151,11 @@ class DeconvBN3D(nn.Sequential):
         super().__init__(nn.ConvTranspose3d(cin, cout, 3, stride=2, padding=1,
                                             output_padding=1, bias=False),
                          _bn(cout))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        deconv, bn = self[0], self[1]
+        return bn(F.conv_transpose3d(x, deconv.weight.to(x.dtype), None,
+                                     stride=2, padding=1, output_padding=1))
 
     def folded(self) -> nn.ConvTranspose3d:
         deconv, bn = self[0], self[1]

@@ -18,6 +18,11 @@ The ``ops.cuda`` wrappers launch the hand-written kernels on CUDA tensors
 and compute their plain PyTorch versions on CPU tensors. Everything else is
 plain PyTorch.
 
+Two entry points: ``ms_features_test`` (the serving path: the padded
+full-resolution pair, downsampled and bordered by 10 px) and
+``ms_features_train`` (a train crop with its margins, downsampled; the
+trainer calls it once a sample).
+
 Layout: the volume is returned as [C, D, H, W], the reference layout and the
 one ``nn.Conv3d`` takes (after a batch axis). The JAX package returns
 [D, H, W, C]; ``msnets_tpu.ops.features.to_ncdhw`` of its output equals the
@@ -222,6 +227,29 @@ def ms_features(iml: torch.Tensor, imr: torch.Tensor, maxdisp: int,
     return assemble_features_lr(*costs, cfg, out_dtype)
 
 
+def _downsample(iml: torch.Tensor, imr: torch.Tensor, s: int):
+    if s == 2:
+        return downsample_half(iml), downsample_half(imr)
+    if s != 1:
+        raise NotImplementedError(f"ds_scale={s}")
+    return iml, imr
+
+
+def ms_features_train(iml: torch.Tensor, imr: torch.Tensor, maxdisp: int,
+                      cfg: MatchingConfig, board_h: int, board_w_left: int,
+                      board_w_right: int = 0, left_only: bool = True,
+                      out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Train-sample feature stage: the cropped full-resolution pair, margins
+    included, is downsampled by ds_scale and turned into features with
+    ``maxdisp`` and the margins divided by ds_scale. Output
+    [C, maxdisp/s, crop_h/s, crop_w/s]."""
+    s = cfg.ds_scale
+    iml, imr = _downsample(iml, imr, s)
+    return ms_features(iml, imr, maxdisp // s, cfg, board_h // s,
+                       board_w_left // s, board_w_right // s, left_only,
+                       out_dtype)
+
+
 def ms_features_test(iml: torch.Tensor, imr: torch.Tensor, maxdisp: int,
                      cfg: MatchingConfig, left_only: bool = True,
                      out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
@@ -230,10 +258,7 @@ def ms_features_test(iml: torch.Tensor, imr: torch.Tensor, maxdisp: int,
     every side and turned into features with 10-px margins, which trims the
     pad back off. Output [C, D/s, H/s, W/s]."""
     s = cfg.ds_scale
-    if s == 2:
-        iml, imr = downsample_half(iml), downsample_half(imr)
-    elif s != 1:
-        raise NotImplementedError(f"ds_scale={s}")
+    iml, imr = _downsample(iml, imr, s)
     b = _BORDER
     iml = torch.nn.functional.pad(iml, (b, b, b, b))
     imr = torch.nn.functional.pad(imr, (b, b, b, b))

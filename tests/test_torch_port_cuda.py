@@ -1,7 +1,8 @@
 """The port on the GPU: the census and census_aml kernels against their plain
-PyTorch versions, and the feature stage and server on the card (8-channel,
-16-channel and raw variants) against the same code on the CPU. Every test needs an NVIDIA GPU and skips without one; run them on
-the card with
+PyTorch versions, and the feature stage, the server (8-channel, 16-channel
+and raw variants, ``predict`` and ``predict_stream``), the train step and the
+checkpoint round trip on the card against the same code on the CPU. Every
+test needs an NVIDIA GPU and skips without one; run them on the card with
 
     python -m pytest --noconftest -p no:cacheprovider -q tests/test_torch_port_cuda.py
 
@@ -12,7 +13,10 @@ import pytest
 import torch
 
 from msnets_tpu_torch import Config, ModelConfig, StereoServer
-from msnets_tpu_torch.config import MatchingConfig
+from msnets_tpu_torch.config import MatchingConfig, TrainConfig
+from msnets_tpu_torch.data.pipeline import synthetic_train_batch
+from msnets_tpu_torch.engine import Trainer
+from msnets_tpu_torch.engine import checkpoint as ck
 from msnets_tpu_torch.models import MSGCNet
 from msnets_tpu_torch.ops.cuda.census import census, census_reference
 from msnets_tpu_torch.ops.cuda.census_aml import (census_aml,
@@ -39,6 +43,7 @@ def _pair(shape, seed):
 @pytest.mark.parametrize("H,W,ndisp,wsize,sigma", [
     (148, 276, 96, 11, 128.0),     # serving path, 256x512 bucket
     (148, 276, 192, 11, 128.0),    # ndisp of ds_scale 1
+    (140, 352, 96, 11, 128.0),     # train path, 280x704 crop
     (45, 131, 40, 11, 64.0),       # rows and columns that divide no tile
     (21, 97, 17, 11, 128.0),       # ndisp not a multiple of the warp split
     (37, 301, 95, 11, 128.0),
@@ -123,6 +128,7 @@ def test_server_on_the_card_matches_the_cpu(cuda, variant):
     (148, 276, 96, 11),     # serving path, 256x512 bucket
     (212, 644, 96, 11),     # serving path, 384x1248 bucket
     (148, 276, 192, 11),    # ndisp of ds_scale 1
+    (140, 448, 96, 11),     # train path, 16 channels: 280x896 crop
     (45, 131, 40, 11),      # rows and disparities that divide no tile
     (21, 97, 17, 11),       # ndisp not a multiple of the warp split
     (37, 301, 95, 11),
@@ -173,3 +179,126 @@ def test_16ch_and_raw_features_on_the_card_match_the_cpu(cuda):
     ref = ms_features_test(torch.from_numpy(a), torch.from_numpy(b), 32, raw,
                            True, torch.bfloat16)
     assert torch.equal(got.cpu(), ref)
+
+
+# relative L2 error of a gradient tensor, card against CPU (float32, TF32
+# off): worst 1.2e-4 (8 channels) and 1.9e-4 (16) measured on an H100
+CARD_GRAD_RTOL = 1e-3
+
+
+def _train_cfg(channels=8, batch_size=2, dtype="float32", root="."):
+    m = MatchingConfig(num_channels=channels)
+    return Config(matching=m,
+                  model=ModelConfig(max_disp=32, base_filters=4,
+                                    in_channels=channels, compute_dtype=dtype),
+                  train=TrainConfig(crop_height=32, crop_width=64,
+                                    batch_size=batch_size,
+                                    checkpoint_dir=str(root)))
+
+
+@pytest.mark.parametrize("channels,batch,n_aml,n_census",
+                         [(8, 2, 2, 0), (16, 1, 0, 1)])
+def test_train_step_on_the_card_matches_the_cpu(cuda, channels, batch, n_aml,
+                                                n_census):
+    """One float32 step (TF32 off) from the same weights: the census
+    kernels launch once a sample; loss to rel 1e-4; disparity to 2e-3, the
+    bound of the server's card-against-CPU test (train-mode BN divides by
+    the batch deviation of few elements in the deep layers, which scales
+    the rounding up: 2.1e-4 measured on an H100); BN running statistics to
+    1e-5; every parameter's gradient (cuDNN's dgrad and wgrad, the BN
+    backward on the card) to a relative L2 error of CARD_GRAD_RTOL; and
+    Adam's first update, about lr * sign(g), the same way in more than 99%
+    of the components (|d| < lr / 10)."""
+    cfg = _train_cfg(channels, batch)
+    b = synthetic_train_batch(32, 64, 32, cfg.matching, batch, 5, 0,
+                              channels == 8)
+    geom = (b["board_h"], b["board_w_left"], b["board_w_right"])
+    with fp32_reference():
+        gpu = Trainer(cfg, device=cuda, seed=3)
+        cpu = Trainer(cfg, device="cpu", seed=3)
+        before = (census_aml.launches, census.launches)
+        mg, dg = gpu.step_fn(*geom)(b["iml"], b["imr"], b["disp"], 1e-3)
+        torch.cuda.synchronize()
+        assert (census_aml.launches - before[0],
+                census.launches - before[1]) == (n_aml, n_census)
+        mc, dc = cpu.step_fn(*geom)(b["iml"], b["imr"], b["disp"], 1e-3)
+    assert float(mg["loss"]) == pytest.approx(float(mc["loss"]), rel=1e-4)
+    np.testing.assert_allclose(dg.cpu().numpy(), dc.numpy(), atol=2e-3)
+    sg, sc = gpu.model.state_dict(), cpu.model.state_dict()
+    for k, v in sc.items():
+        if "running" in k:
+            np.testing.assert_allclose(sg[k].cpu().numpy(), v.numpy(),
+                                       rtol=1e-5, atol=1e-5, err_msg=k)
+    moved, errs = [], {}
+    for (k, pg), (_, pc) in zip(gpu.model.named_parameters(),
+                                cpu.model.named_parameters()):
+        if pc.grad is None:                          # deconv5's bias
+            assert pg.grad is None, k
+            continue
+        want = pc.grad.double()
+        errs[k] = ((pg.grad.cpu().double() - want).norm() / want.norm()).item()
+        moved.append(((pg.detach().cpu() - pc.detach()).abs() < 1e-4).ravel())
+    worst = max(errs, key=errs.get)
+    print(f"{channels} channels: worst gradient relative L2 error "
+          f"{errs[worst]:.3g} ({worst})")
+    assert errs[worst] <= CARD_GRAD_RTOL, (worst, errs[worst])
+    assert torch.cat(moved).float().mean().item() > 0.99
+
+
+def test_bf16_train_steps_on_the_card(cuda):
+    cfg = _train_cfg(dtype="bfloat16")
+    tr = Trainer(cfg, device=cuda)
+    b = synthetic_train_batch(32, 64, 32, cfg.matching, 2, 5, 0)
+    fn = tr.step_fn(b["board_h"], b["board_w_left"], b["board_w_right"])
+    losses = [float(fn(b["iml"], b["imr"], b["disp"], 1e-3)[0]["loss"])
+              for _ in range(4)]
+    assert np.isfinite(losses).all() and losses[-1] < losses[0], losses
+    assert tr.model.conv3dbn_1[0].weight.dtype == torch.float32
+
+
+def test_checkpoint_round_trip_on_the_card(cuda, tmp_path):
+    """save_step snapshots on the card; the step right after it changes the
+    live tensors in place; a fresh trainer resumed from the file holds the
+    snapshot bit for bit."""
+    cfg = _train_cfg(root=tmp_path)
+    tr = Trainer(cfg, device=cuda)
+    b = synthetic_train_batch(32, 64, 32, cfg.matching, 2, 5, 0)
+    fn = tr.step_fn(b["board_h"], b["board_w_left"], b["board_w_right"])
+    fn(b["iml"], b["imr"], b["disp"], 1e-3)
+    want = ck._map_tensors(lambda t: t.detach().cpu().clone(), tr.state())
+    path = tr.save_step(1, 1)
+    fn(b["iml"], b["imr"], b["disp"], 1e-3)
+    tr.finish_checkpoints()
+    fresh = Trainer(cfg, device=cuda, seed=1)
+    fresh.resume(path)
+    got = fresh.state()
+    assert got["step"] == want["step"] == 1
+    for k, v in want["state_dict"].items():
+        assert got["state_dict"][k].device.type == "cuda"
+        assert torch.equal(got["state_dict"][k].cpu(), v), k
+    for i, s in want["optimizer"]["state"].items():
+        for k, v in s.items():
+            assert torch.equal(got["optimizer"]["state"][i][k].cpu(), v), (i, k)
+
+
+def test_predict_stream_on_the_card_equals_predict(cuda):
+    cfg = Config(model=ModelConfig(max_disp=32, base_filters=8,
+                                   compute_dtype="float32"))
+    sd = MSGCNet(32, 8, 8, generator=torch.Generator().manual_seed(3)).state_dict()
+    srv = StereoServer(cfg, sd, device=cuda, depth=2)
+    pairs = [_pair(s, i) for i, s in enumerate([(64, 128), (60, 120), (96, 160),
+                                                (64, 128), (96, 160), (50, 90)])]
+    # bit for bit under cuDNN's deterministic algorithms: its transposed
+    # convolutions may otherwise sum in a run-dependent order (4e-6 apart
+    # on an H100 with the default ones)
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        got = list(srv.predict_stream(iter(pairs)))
+        want = [srv.predict(a, b) for a, b in pairs]
+    finally:
+        torch.backends.cudnn.deterministic = prev
+    for d, w in zip(got, want):
+        np.testing.assert_array_equal(d, w)
+    assert {b: q.qsize() for b, q in srv._slots.items()} == \
+        {(64, 128): 2, (96, 160): 2, (64, 96): 2}

@@ -8,6 +8,7 @@ import torch
 from msnets_tpu.config import MatchingConfig as JaxMatchingConfig
 from msnets_tpu.ops import features as JF
 from msnets_tpu_torch.config import MatchingConfig
+from msnets_tpu_torch.data.pipeline import synthetic_train_batch
 from msnets_tpu_torch.ops import features as TF
 
 
@@ -150,3 +151,22 @@ def test_16ch_volume_shape_for_the_models():
                        4, 16, 0, cfg.left_only)
     assert tuple(f.shape) == (16, 16, 32, 64)
     assert bool(torch.isfinite(f).all())
+
+
+@pytest.mark.parametrize("channels", [8, 16])
+def test_ms_features_train_matches_jax(channels):
+    """The train crop with its margins (board_h 12, bwl = bwr = max_disp for
+    16 channels); tolerance that of the port's other feature tests."""
+    b = synthetic_train_batch(32, 64, 32, MatchingConfig(), 1, 5, 1,
+                              channels == 8)
+    a, r = b["iml"][0], b["imr"][0]
+    geom = (b["board_h"], b["board_w_left"], b["board_w_right"])
+    got = TF.ms_features_train(torch.from_numpy(a), torch.from_numpy(r),
+                               32, MatchingConfig(num_channels=channels),
+                               *geom, channels == 8)
+    ref = np.asarray(JF.to_ncdhw(JF.ms_features_train(
+        jnp.asarray(a), jnp.asarray(r), 32,
+        JaxMatchingConfig(num_channels=channels), *geom, channels == 8)))
+    assert tuple(got.shape) == ref.shape == (channels, 16, 16, 32)
+    np.testing.assert_allclose(got.numpy(), ref, atol=5e-6)
+    np.testing.assert_array_equal(got[0].numpy(), ref[0])     # census cost

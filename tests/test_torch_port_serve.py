@@ -134,3 +134,63 @@ def test_fp32_reference_restores_tf32_flags():
         assert not torch.backends.cuda.matmul.allow_tf32
     assert (torch.backends.cudnn.allow_tf32,
             torch.backends.cuda.matmul.allow_tf32) == before
+
+
+def _stream_pairs(shapes, seed):
+    rng = np.random.default_rng(seed)
+    return [(rng.integers(0, 256, s, dtype=np.uint8),
+             rng.integers(0, 256, s, dtype=np.uint8)) for s in shapes]
+
+
+def _fetchers():
+    import threading
+    return [t for t in threading.enumerate()
+            if t.name == "predict_stream fetcher" and t.is_alive()]
+
+
+@pytest.mark.parametrize("depth", [1, 2, 3])
+def test_predict_stream_order_and_values(state_dict, depth):
+    """Mirrors tests/test_serve.py::test_predict_stream_order_and_values, two
+    buckets mixed: each result is predict's on the same pair, bit for bit
+    (the same forward), in input order; every slot returns to its pool."""
+    srv = TS.StereoServer(_cfg(), state_dict, buckets=[(64, 128)],
+                          device="cpu", depth=depth)
+    pairs = _stream_pairs([(64, 128), (50, 100), (96, 160), (64, 128),
+                           (60, 120)], 2)
+    got = list(srv.predict_stream(iter(pairs)))
+    assert len(got) == 5
+    for (iml, imr), d in zip(pairs, got):
+        assert d.shape == iml.shape and d.dtype == np.float32
+        np.testing.assert_array_equal(d, srv.predict(iml, imr))
+    assert {b: p.qsize() for b, p in srv._slots.items()} == \
+        {(64, 128): depth, (96, 160): depth}
+    assert srv.stats()["frames"] == 10
+    assert not _fetchers()
+
+
+def test_predict_stream_item_error_surfaces_in_order(state_dict):
+    """A pair whose views differ in shape fails in its padding: the frames
+    before it come out, then its error is raised, and the stream ends with
+    no thread left."""
+    srv = TS.StereoServer(_cfg(), state_dict, device="cpu", depth=2)
+    pairs = _stream_pairs([(64, 128)] * 4, 3)
+    pairs[2] = (pairs[2][0], pairs[2][1][:32])
+    stream = srv.predict_stream(iter(pairs))
+    for want in pairs[:2]:
+        np.testing.assert_array_equal(next(stream), srv.predict(*want))
+    with pytest.raises(ValueError):
+        next(stream)
+    with pytest.raises(StopIteration):
+        next(stream)
+    assert not _fetchers()
+    assert srv._slots[(64, 128)].qsize() == 2
+
+
+def test_abandoned_stream_leaves_no_thread(state_dict):
+    srv = TS.StereoServer(_cfg(), state_dict, device="cpu", depth=2)
+    stream = srv.predict_stream(iter(_stream_pairs([(64, 128)] * 6, 4)))
+    next(stream)
+    assert len(_fetchers()) == 1
+    stream.close()                                 # GeneratorExit
+    assert not _fetchers()
+    assert srv._slots[(64, 128)].qsize() == 2
