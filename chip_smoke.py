@@ -52,7 +52,35 @@ Phases, each of which fails the run on error:
                 256x512 pair as the server of the same state_dict does;
  12. stream     predict_stream over 16 requests at 256x512, depth 2: each
                 result equals predict's, census_aml once a request; pairs/s
-                of the stream and of a predict loop.
+                of the stream and of a predict loop;
+ 13. serve_psmnet
+                StereoServer with ModelConfig(name="MS-PSMNet") (max_disp
+                192, F=32, bfloat16, 8 channels), seeded random weights:
+                3 requests at 256x512 and one at 375x1242, census_aml once a
+                request and census never; ms/pair, the features/model
+                split, a profile, the peak memory of one forward, and
+                bfloat16 against float32 (TF32 off);
+ 14. train_psmnet
+                Config() with MS-PSMNet (crop 256x512 with margins, batch 2,
+                Adam 1e-3): 8 steps on one synthetic batch of known
+                disparity (every loss finite, the last below the first,
+                census_aml twice a step; ms/step, median of steps 3-8, and
+                peak memory); one step of the CLI's default for batch 2
+                (grad_accum=2, no remat); then, from one seed and under
+                cuDNN's deterministic algorithms, one step without remat
+                and one with remat at remat_scope "all" and at "hourglass":
+                the peak memory of each, each remat loss equal to the plain
+                one to 1e-3 relative, the BN running statistics equal;
+ 15. cli        python -m msnets_tpu_torch.cli's main() on a synthetic
+                KITTI-2015 tree of 3 frames at 375x1242 (ground truth as
+                PFM; the frames reach the pipeline through its read_gray
+                and read_rgb seam, the card's machine having no OpenCV):
+                --mode train (MS-GCNet, 2 steps at a 128x256 crop), --mode
+                test on the checkpoint it wrote (colour PNGs off), --mode
+                eval-badx; census_aml once a step and once a frame; the
+                PFMs equal StereoServer.predict's of the same frames and
+                weights bit for bit (cuDNN's deterministic algorithms), and
+                eval-badx gives the test's averages.
 Then a {"kernels": [...]} line, and as the last line
 {"ok": true, "device": {...}}. Without CUDA, or without the
 package beside this file, it exits non-zero and prints no result.
@@ -790,6 +818,222 @@ def phase_stream(state):
             f"depth 2) [{state['smi']}]")
 
 
+def phase_serve_psmnet(state):
+    from msnets_tpu_torch import Config, ModelConfig
+    cfg = Config(model=ModelConfig(name="MS-PSMNet"))
+    assert (cfg.model.max_disp, cfg.model.base_filters, cfg.model.compute_dtype,
+            cfg.matching.num_channels) == (192, 32, "bfloat16", 8)
+    requests = [textured_pair(256, 512, 24 + 8 * i, 60 + i) for i in range(3)]
+    requests.append(textured_pair(375, 1242, 40, 63))
+    server, sd, launches, il, ir = _serve(
+        state, "serve_psmnet", cfg, requests, {"census_aml": 1, "census": 0},
+        (10, 3))
+    state["launches_by_path"]["serve_psmnet"] = launches
+    _profile("serve_psmnet 256x512 forward", lambda: server.forward(il, ir))
+    _precision("precision_psmnet", server, sd)
+
+
+def _psmnet_train_cfg(**train):
+    from msnets_tpu_torch import ModelConfig
+    return dataclasses.replace(_train_cfg(**train),
+                               model=ModelConfig(name="MS-PSMNet"))
+
+
+def phase_train_psmnet(state):
+    import torch
+    from msnets_tpu_torch.engine import Trainer
+    cfg = _psmnet_train_cfg()
+    t, mdl = cfg.train, cfg.model
+    assert (mdl.max_disp, mdl.base_filters, mdl.compute_dtype, t.crop_height,
+            t.crop_width, t.batch_size, t.lr, t.grad_accum, t.remat) == \
+        (192, 32, "bfloat16", 256, 512, 2, 1e-3, 1, False)
+    tr = Trainer(cfg, seed=0)
+    batch = _train_batch(cfg, 6)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses = []
+    events = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True)) for _ in range(TRAIN_STEPS)]
+    _reset_counts()                                 # main path starts here
+    for start, end in events:
+        start.record()
+        m, _ = _step(tr, batch)
+        end.record()
+        losses.append(float(m["loss"]))
+    launches = _counts()                            # main path ends here
+    torch.cuda.synchronize()
+    ms = [s.elapsed_time(e) for s, e in events]
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log("train_psmnet: losses " + ", ".join(f"{x:.4f}" for x in losses))
+    log("train_psmnet: ms/step " + ", ".join(f"{x:.1f}" for x in ms))
+    log(f"train_psmnet 256x512 batch 2 bf16: {float(np.median(ms[2:])):.3f} "
+        f"ms/step (median of steps 3-{TRAIN_STEPS}, CUDA events), peak "
+        f"device memory {peak:.2f} GiB, kernel launches {launches} in "
+        f"{TRAIN_STEPS} steps [{state['smi']}]")
+    assert np.isfinite(losses).all(), losses
+    assert losses[-1] < losses[0], losses
+    assert launches == {"census_aml": 2 * TRAIN_STEPS, "census": 0}, launches
+    state["launches_by_path"]["train_psmnet"] = launches
+    _profile("train_psmnet step 256x512 batch 2", lambda: _step(tr, batch))
+    del tr
+
+    launches = _one_step(state, "train_psmnet CLI default grad_accum=2 batch 2",
+                         _psmnet_train_cfg(grad_accum=2),
+                         {"census_aml": 2, "census": 0})
+    state["launches_by_path"]["train_psmnet"] = {
+        k: v + launches[k]
+        for k, v in state["launches_by_path"]["train_psmnet"].items()}
+
+    # remat against the plain step, from one seed, on one batch
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        steps = {}
+        for tag, kw in (("plain", {}),
+                        ("remat all", {"remat": True, "remat_scope": "all"}),
+                        ("remat hourglass", {"remat": True,
+                                             "remat_scope": "hourglass"})):
+            tr = Trainer(_psmnet_train_cfg(**kw), seed=1)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            m, _ = _step(tr, batch)
+            end.record()
+            torch.cuda.synchronize()
+            stats = {k: v.float().cpu() for k, v in tr.model.state_dict().items()
+                     if "running" in k}
+            steps[tag] = (float(m["loss"]), stats)
+            log(f"train_psmnet {tag}: one step, loss {steps[tag][0]:.6f}, "
+                f"{start.elapsed_time(end):.1f} ms (first step of its "
+                f"trainer), peak device memory "
+                f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+                f"[{state['smi']}]")
+            del tr
+    finally:
+        torch.backends.cudnn.deterministic = prev
+    loss0, stats0 = steps["plain"]
+    for tag in ("remat all", "remat hourglass"):
+        loss, stats = steps[tag]
+        worst = max((stats[k] - v).abs().max().item() for k, v in stats0.items())
+        same = all(torch.equal(stats[k], v) for k, v in stats0.items())
+        log(f"train_psmnet {tag} against plain: loss relative difference "
+            f"{abs(loss - loss0) / abs(loss0):.3g}; running statistics "
+            f"max |d| {worst:.3g} (bit for bit: {same})")
+        assert abs(loss - loss0) <= 1e-3 * abs(loss0), (tag, loss, loss0)
+        scale = max(v.abs().max().item() for v in stats0.values())
+        assert worst <= 1e-3 * scale, (tag, worst)
+
+
+CLI_ROOT = ROOT / "build" / "chip_smoke_cli"
+CLI_FRAMES = 3
+
+
+def _write_pgm(path: Path, img: np.ndarray) -> None:
+    with open(path, "wb") as f:
+        f.write(b"P5\n%d %d\n255\n" % (img.shape[1], img.shape[0]))
+        f.write(np.ascontiguousarray(img, np.uint8).tobytes())
+
+
+def phase_cli(state):
+    """The CLI's train, test and eval-badx modes through main(), as a user
+    runs them, on a synthetic KITTI-2015 tree."""
+    import torch
+    from msnets_tpu_torch import StereoServer, cli, engine
+    from msnets_tpu_torch.data import pfm as pfmio
+    from msnets_tpu_torch.data import pipeline
+    from msnets_tpu_torch.engine.checkpoint import ckpt_path
+    shutil.rmtree(CLI_ROOT, ignore_errors=True)
+    for d in ("image_0", "image_1", "disp_occ_0_pfm"):
+        (CLI_ROOT / d).mkdir(parents=True)
+    frames, entries = {}, []
+    for i in range(CLI_FRAMES):
+        shift = 20 + 8 * i
+        left, right = textured_pair(375, 1242, shift, 70 + i)
+        name = f"{i:06d}_10.pgm"
+        for d, img in (("image_0", left), ("image_1", right)):
+            _write_pgm(CLI_ROOT / d / name, img)
+            frames[str(CLI_ROOT / d / name)] = img
+        gt = np.full((375, 1242), float(shift), np.float32)
+        gt[:, :shift] = np.inf                      # no match: masked
+        pfmio.write_pfm(str(CLI_ROOT / "disp_occ_0_pfm" / f"{i:06d}_10.pfm"), gt)
+        entries.append(name)
+    (CLI_ROOT / "train.list").write_text("\n".join(entries[:2]) + "\n")
+    (CLI_ROOT / "test.list").write_text("\n".join(entries) + "\n")
+    ck_dir, res = CLI_ROOT / "checkpoints", CLI_ROOT / "results"
+    data = ["--kitti2015=1", f"--data_path={CLI_ROOT}",
+            f"--training_list={CLI_ROOT / 'train.list'}",
+            f"--test_list={CLI_ROOT / 'test.list'}"]
+    ckpt = ckpt_path(str(ck_dir), "MS-GCNet", 1)
+
+    results = {}
+    saved = (cli.args_to_config, cli.run_test, engine.eval_bad_x,
+             pipeline.read_gray, pipeline.read_rgb)
+
+    def args_to_config(a):                  # no cv2 here: no colour PNGs
+        cfg = saved[0](a)
+        return dataclasses.replace(cfg, eval=dataclasses.replace(
+            cfg.eval, save_color=False))
+
+    def run_test(cfg, **kw):
+        results["test"] = saved[1](cfg, **kw)
+        return results["test"]
+
+    def eval_bad_x(cfg, **kw):
+        results["eval-badx"] = saved[2](cfg, **kw)
+        return results["eval-badx"]
+
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    cli.args_to_config, cli.run_test, engine.eval_bad_x = (
+        args_to_config, run_test, eval_bad_x)
+    pipeline.read_gray = frames.__getitem__
+    pipeline.read_rgb = lambda p: np.repeat(frames[p][:, :, None], 3, axis=2)
+    try:
+        t0 = time.perf_counter()
+        _reset_counts()                             # main path starts here
+        cli.main(["--mode=train", "--crop_height=128", "--crop_width=256",
+                  "--batchSize=1", "--nEpochs=1", "--seed=7", "--threads=2",
+                  f"--checkpoint_dir={ck_dir}", "--train_logdir="] + data)
+        train_s = time.perf_counter() - t0
+        train_launches = _counts()
+        t0 = time.perf_counter()
+        cli.main(["--mode=test", f"--resume={ckpt}", f"--resultDir={res}"] + data)
+        test_s = time.perf_counter() - t0
+        cli.main(["--mode=eval-badx", f"--resultDir={res}"] + data)
+        launches = _counts()                        # main path ends here
+
+        cfg = saved[0](cli.build_parser().parse_args(data + ["--seed=7"]))
+        server = StereoServer.from_checkpoint(cfg, str(ckpt))
+        same = []
+        for name in entries:
+            want = server.predict(frames[str(CLI_ROOT / "image_0" / name)],
+                                  frames[str(CLI_ROOT / "image_1" / name)])
+            got = pfmio.read_pfm(str(res / (name[:-4] + ".pfm")))
+            same.append(bool(np.array_equal(got, want)))
+            _check_disp(got, (375, 1242), cfg.model.max_disp)
+    finally:
+        torch.backends.cudnn.deterministic = prev
+        (cli.args_to_config, cli.run_test, engine.eval_bad_x,
+         pipeline.read_gray, pipeline.read_rgb) = saved
+    test, badx = results["test"], results["eval-badx"]
+    log(f"cli: train (2 steps, crop 128x256, MS-GCNet) {train_s:.2f} s "
+        f"(launches {train_launches}); test {test['frames']} frames of "
+        f"375x1242 {test_s:.2f} s: AVG EPE {test['avg_epe']:.6f}, bad-"
+        f"{test['threshold']:.0f} {test['avg_bad']:.6f}; eval-badx AVG EPE "
+        f"{badx['avg_epe']:.6f}, bad {badx['avg_bad']:.6f}; PFMs equal "
+        f"predict's bit for bit: {same}; launches {launches} [{state['smi']}]")
+    assert train_launches == {"census_aml": 2, "census": 0}, train_launches
+    assert launches == {"census_aml": 2 + CLI_FRAMES, "census": 0}, launches
+    assert test["frames"] == badx["frames"] == CLI_FRAMES
+    assert test["threshold"] == 3.0
+    assert abs(test["avg_epe"] - badx["avg_epe"]) <= 1e-9, (test, badx)
+    assert abs(test["avg_bad"] - badx["avg_bad"]) <= 1e-9, (test, badx)
+    assert all(same), same
+    state["launches_by_path"]["cli"] = launches
+    shutil.rmtree(CLI_ROOT, ignore_errors=True)
+
+
 def main() -> int:
     import torch
     if not __debug__:
@@ -808,7 +1052,8 @@ def main() -> int:
     state = {"launches_by_path": {}}
     phases = [phase_device, phase_build, phase_kernel, phase_features,
               phase_serve, phase_precision, phase_serve16, phase_serve_raw,
-              phase_phases, phase_train, phase_checkpoint, phase_stream]
+              phase_phases, phase_train, phase_checkpoint, phase_stream,
+              phase_serve_psmnet, phase_train_psmnet, phase_cli]
     for phase in phases:
         t0 = time.perf_counter()
         log(f"== {phase.__name__[6:]}")

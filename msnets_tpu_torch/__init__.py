@@ -2,11 +2,12 @@
 
 Entry points run on the GPU unless the caller passes ``device="cpu"``.
 """
-from .config import (INVALID, Config, DataConfig, MatchingConfig, ModelConfig,
-                     TrainConfig)
-from .engine import Trainer
-from .models import MSGCNet, build_model
+from .config import (INVALID, Config, DataConfig, EvalConfig, MatchingConfig,
+                     ModelConfig, TrainConfig)
+from .engine import Evaluator, Trainer
+from .models import MSGCNet, MSPSMNet, build_model
 from .serve import StereoServer
 
-__all__ = ["INVALID", "Config", "DataConfig", "MatchingConfig", "ModelConfig",
-           "TrainConfig", "MSGCNet", "Trainer", "build_model", "StereoServer"]
+__all__ = ["INVALID", "Config", "DataConfig", "EvalConfig", "MatchingConfig",
+           "ModelConfig", "TrainConfig", "Evaluator", "MSGCNet", "MSPSMNet",
+           "Trainer", "build_model", "StereoServer"]

@@ -5,7 +5,7 @@ The port keeps its own copy of the JAX package's configuration
 the run mode. Field names and defaults are the same, so a reader can move
 between the two packages; the classes are frozen dataclasses as there. The
 JAX package's TPU-only model fields (packed lowerings, int8 modes) and its
-mesh and eval settings are not carried; ``Config.from_json`` skips them.
+mesh settings are not carried; ``Config.from_json`` skips them.
 """
 from __future__ import annotations
 
@@ -82,7 +82,10 @@ class TrainConfig:
     checkpoint_dir: str = "./checkpoints"
     train_logdir: str = "./logs"
     resume: str = ""
-    remat: bool = False           # not ported: torch.utils.checkpoint (ROADMAP)
+    # recompute each BN'd stage in the backward (torch.utils.checkpoint)
+    # instead of keeping its activations; MS-PSMNet's remat_scope: "all"
+    # (dres, classifiers and hourglass stages) or "hourglass" (only those)
+    remat: bool = False
     remat_scope: str = "all"
     # sequential micro-batches per step (batch_size % grad_accum == 0):
     # gradients summed and divided by grad_accum, BN stats threaded through
@@ -124,6 +127,15 @@ class DataConfig:
         return 1.0
 
 
+@dataclasses.dataclass(frozen=True)
+class EvalConfig:
+    """Evaluator outputs (reference main_msnet.py:533-648)."""
+    result_dir: str = "./results"
+    threshold: float = 3.0       # eval-badx's threshold; test takes the dataset's
+    save_pfm: bool = True
+    save_color: bool = True
+
+
 def _known(cls, d: dict) -> dict:
     """The entries of ``d`` that are fields of ``cls``."""
     names = {f.name for f in dataclasses.fields(cls)}
@@ -136,6 +148,7 @@ class Config:
     model: ModelConfig = dataclasses.field(default_factory=ModelConfig)
     train: TrainConfig = dataclasses.field(default_factory=TrainConfig)
     data: DataConfig = dataclasses.field(default_factory=DataConfig)
+    eval: EvalConfig = dataclasses.field(default_factory=EvalConfig)
     mode: str = "train"   # train | loop-train | test | val-30 | cross-val | eval-badx
 
     def to_json(self) -> str:
@@ -151,5 +164,6 @@ class Config:
             model=ModelConfig(**_known(ModelConfig, d.get("model", {}))),
             train=TrainConfig(**_known(TrainConfig, d.get("train", {}))),
             data=DataConfig(**_known(DataConfig, d.get("data", {}))),
+            eval=EvalConfig(**_known(EvalConfig, d.get("eval", {}))),
             mode=d.get("mode", "train"),
         )

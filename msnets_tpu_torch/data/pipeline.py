@@ -1,12 +1,10 @@
-"""Host-side training input pipeline: the train half of
-``msnets_tpu/data/pipeline.py``, copied into the port (cropping, margins,
-sample assembly, the shuffled, sharded, prefetched batch stream and the
-map-style dataset). The evaluator's ``TestPipeline`` comes with the
-evaluator.
+"""Host-side input pipelines: the port's copy of
+``msnets_tpu/data/pipeline.py`` (cropping, margins, sample assembly, the
+shuffled, sharded, prefetched batch stream, the map-style dataset, and the
+evaluator's padded test stream).
 
-Hosts read images and produce *uint8 crops*; the feature stage
-(``ops.features.ms_features_train``) runs on the device inside the train
-step.
+Hosts read images and produce *uint8 crops* (train) or *padded uint8 frames*
+(test); the feature stage (``ops.features``) runs on the device.
 
 Crop semantics (reference cbmv_generator.py:398-432, 581-638):
   * margins: board_w_left = max_disp (the unmatchable left band is cropped
@@ -146,6 +144,18 @@ class TrainSample:
     board_w_left: int
     board_w_right: int
 
+@dataclasses.dataclass
+class TestSample:
+    iml: np.ndarray          # uint8 [crop_h, crop_w] padded full-res
+    imr: np.ndarray
+    height: int              # original image dims
+    width: int
+    crop_height: int         # padded dims (multiple of encoder_ds)
+    crop_width: int
+    entry: str
+    disp_path: str
+
+
 def make_train_sample(limg: str, rimg: str, ldisp: str,
                       crop_h: int, crop_w: int, max_disp: int,
                       cfg: MatchingConfig,
@@ -201,6 +211,24 @@ def make_dummy_train_sample(crop_h: int, crop_w: int, max_disp: int,
         left_rgb=np.zeros((3, crop_h, crop_w), np.float32),
         right_rgb=np.zeros((3, crop_h, crop_w), np.float32),
         board_h=bh, board_w_left=bwl, board_w_right=bwr)
+
+
+def make_test_sample(limg: str, rimg: str, ldisp: str, entry: str,
+                     encoder_ds: int = 32) -> TestSample:
+    """Pad top and right to a multiple of encoder_ds (generate_test_cbmv,
+    cbmv_generator.py:780-788). Downsample and border pad run on the
+    device."""
+    iml = read_gray(limg)
+    imr = read_gray(rimg)
+    h, w = iml.shape
+    cw = w + (encoder_ds - w % encoder_ds) % encoder_ds
+    ch = h + (encoder_ds - h % encoder_ds) % encoder_ds
+    pad_h, pad_w = ch - h, cw - w
+    iml = np.pad(iml, ((pad_h, 0), (0, pad_w)))
+    imr = np.pad(imr, ((pad_h, 0), (0, pad_w)))
+    return TestSample(iml=iml, imr=imr, height=h, width=w,
+                      crop_height=ch, crop_width=cw, entry=entry,
+                      disp_path=ldisp)
 
 
 def synthetic_train_batch(crop_h: int, crop_w: int, max_disp: int,
@@ -503,3 +531,24 @@ class MapDataset:
         index %= len(entries)
         return self.pipe.load_entry(entries[index], epoch, index)
 
+
+class TestPipeline:
+    """Sequential eval stream (batch 1, like the reference test loader)."""
+
+    def __init__(self, data_cfg, match_cfg: MatchingConfig, encoder_ds: int = 32):
+        self.data_cfg = data_cfg
+        self.cfg = match_cfg
+        self.encoder_ds = encoder_ds
+        self.entries = resolvers.load_list(data_cfg.test_list)
+        self.cleanpass = match_cfg.sf_frames_type == "frames_cleanpass"
+
+    def __len__(self):
+        return len(self.entries)
+
+    def __iter__(self) -> Iterator[TestSample]:
+        for entry in self.entries:
+            paths = resolvers.resolve(self.data_cfg.dataset,
+                                      self.data_cfg.data_path, entry,
+                                      self.cleanpass)
+            yield make_test_sample(paths[0], paths[1], paths[2], entry,
+                                   self.encoder_ds)

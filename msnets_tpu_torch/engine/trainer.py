@@ -1,9 +1,9 @@
-"""Trainer: the MS-GCNet train step with the feature stage on the device
-(counterpart of ``msnets_tpu/engine/trainer.py``).
+"""Trainer: the MS-GCNet and MS-PSMNet train step with the feature stage on
+the device (counterpart of ``msnets_tpu/engine/trainer.py``).
 
 One step takes uint8 image crops, computes the matching-space features
 (``ms_features_train``, one sample at a time, so one ``census_aml`` launch a
-sample for 8 channels or one ``census`` launch for 16), runs MS-GCNet in
+sample for 8 channels or one ``census`` launch for 16), runs the model in
 train mode, the loss, the gradients, Adam and the BatchNorm updates.
 
 Where the JAX package carries a ``TrainState`` through a jitted function,
@@ -15,7 +15,12 @@ Parity elements (reference main_msnet.py):
     optax and torch both place it; the lr is set on the parameter group at
     every step, as the JAX step injects it;
   * lr for epoch <= 200, then lr * 0.1 (``epoch_lr``);
-  * loss per dataset (smooth-L1; KITTI 0.4 smooth-L1 + 0.6 MyLoss2);
+  * loss per dataset and model (MS-GCNet: smooth-L1, on KITTI 0.4
+    smooth-L1 + 0.6 MyLoss2; MS-PSMNet: its three heads weighted 0.2, 0.6
+    and 1.0, the last MyLoss2 on KITTI), metrics on the last head;
+  * ``remat``: the model recomputes its BN'd stages in the backward
+    (``remat_scope`` for MS-PSMNet), each BN's running statistics updated
+    once a step;
   * per-step metrics loss, EPE and accu3 on the train mask;
   * ``grad_accum``: sequential micro-batches, gradients summed and divided
     by ``grad_accum``, BN running statistics threaded through in order,
@@ -64,10 +69,6 @@ class Trainer:
 
     def __init__(self, cfg: Config, device: DeviceLike = None, seed: int = 0):
         t = cfg.train
-        if t.remat:
-            raise NotImplementedError(
-                "TrainConfig.remat is not ported yet (torch.utils.checkpoint, "
-                "ROADMAP)")
         if t.grad_accum < 1 or t.batch_size % t.grad_accum:
             raise ValueError(f"batch_size {t.batch_size} is no multiple of "
                              f"grad_accum {t.grad_accum}")
@@ -75,10 +76,12 @@ class Trainer:
         self.device = resolve_device(device)
         self.dtype = compute_dtype(cfg.model)
         self.model = build_model(cfg.model, self.device,
-                                 torch.Generator().manual_seed(seed)).train()
+                                 torch.Generator().manual_seed(seed),
+                                 t.remat, t.remat_scope).train()
         self.optimizer = make_optimizer(self.model.parameters(), t.lr)
         self.step = 0
         self.is_kitti = cfg.data.kitti2012 or cfg.data.kitti2015
+        self.is_psmnet = cfg.model.name == "MS-PSMNet"
         self._async_ckpt: Optional[ckpt.AsyncCheckpointer] = None
 
     # -- state ------------------------------------------------------------
@@ -113,9 +116,14 @@ class Trainer:
         t, max_disp = self.cfg.train, self.cfg.model.max_disp
         feats = self.features(iml, imr, *geometry)
         mask = L.train_valid_mask(target, max_disp)
-        disp = self.model(feats)
-        loss = L.gcnet_loss(disp, target, mask, self.is_kitti,
-                            t.loss2_thresh, t.loss2_alpha)
+        if self.is_psmnet:
+            d0, d1, disp = self.model(feats)
+            loss = L.psmnet_loss(d0, d1, disp, target, mask, self.is_kitti,
+                                 t.loss2_thresh, t.loss2_alpha)
+        else:
+            disp = self.model(feats)
+            loss = L.gcnet_loss(disp, target, mask, self.is_kitti,
+                                t.loss2_thresh, t.loss2_alpha)
         loss.backward()
         with torch.no_grad():
             disp = disp.detach()

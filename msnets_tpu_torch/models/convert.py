@@ -4,7 +4,8 @@
 ``state_dict_from_jax`` takes the JAX package's ``{"params",
 "batch_stats"}`` trees (numpy arrays or anything ``np.asarray`` takes) and
 returns the state_dict of the port's model, under the reference checkpoint's
-key schema. The port keeps its own copy of the GCNet key map.
+key schema. The port keeps its own copies of the MS-GCNet and MS-PSMNet key
+maps.
 
 Weight layouts:
   * Conv3d: flax [kd, kh, kw, in, out] -> torch [out, in, kd, kh, kw];
@@ -66,15 +67,45 @@ def gcnet_key_map() -> List[_Entry]:
     return e
 
 
+def _hourglass_entries(prefix: str, name: str) -> List[_Entry]:
+    """conv1, conv3, conv4 = (convbn, ReLU); conv2 = convbn; conv5, conv6 =
+    (ConvTranspose3d, BatchNorm3d)."""
+    e = _convbn_entries(f"{prefix}.conv1.0", (name, "conv1"))
+    e += _convbn_entries(f"{prefix}.conv2", (name, "conv2"))
+    e += _convbn_entries(f"{prefix}.conv3.0", (name, "conv3"))
+    e += _convbn_entries(f"{prefix}.conv4.0", (name, "conv4"))
+    for c in (5, 6):
+        e.append((f"{prefix}.conv{c}.0.weight", "params",
+                  (name, f"conv{c}", "deconv", "kernel"), "deconv"))
+        e += _bn_entries(f"{prefix}.conv{c}.1", (name, f"conv{c}", "bn"))
+    return e
+
+
+def psmnet_key_map() -> List[_Entry]:
+    """(torch key, flax collection, flax path, weight kind) for MS-PSMNet."""
+    e = _convbn_entries("dres0.0", ("dres0_1",))
+    e += _convbn_entries("dres0.2", ("dres0_2",))
+    e += _convbn_entries("dres1.0", ("dres1_1",))
+    e += _convbn_entries("dres1.2", ("dres1_2",))
+    for i in (2, 3, 4):
+        e += _hourglass_entries(f"dres{i}", f"dres{i}")
+    for i in (1, 2, 3):
+        e += _convbn_entries(f"classif{i}.0", (f"classif{i}", "convbn"))
+        e.append((f"classif{i}.2.weight", "params",
+                  (f"classif{i}", "conv", "kernel"), "conv"))
+    return e
+
+
+_KEY_MAPS = {"MS-GCNet": gcnet_key_map, "MS-PSMNet": psmnet_key_map}
+
+
 def state_dict_from_jax(variables: Mapping, model_name: str = "MS-GCNet"
                         ) -> Dict[str, torch.Tensor]:
     """The port's state_dict for the JAX variables of ``model_name``."""
-    if model_name != "MS-GCNet":
-        raise NotImplementedError(
-            f"{model_name}: only MS-GCNet is ported (MS-PSMNet is ROADMAP "
-            "queue 1, item 11)")
+    if model_name not in _KEY_MAPS:
+        raise ValueError(f"No suitable model found: {model_name}")
     sd = OrderedDict()
-    for key, coll, path, kind in gcnet_key_map():
+    for key, coll, path, kind in _KEY_MAPS[model_name]():
         node = variables[coll]
         for p in path:
             node = node[p]

@@ -18,6 +18,10 @@ float32 head). deconv5's bias stays out of the graph, as in the JAX head
 logit equally and cancels in the softmax, so leaving it out changes no
 output, and its gradient is exactly 0, so Adam leaves it as it is.
 
+With ``remat`` the train forward recomputes every BN'd stage (stem convs,
+encoder blocks, decoder deconvs) in the backward, as the JAX model's
+``remat`` does (``layers.remat``).
+
 Submodule names follow the reference checkpoint (``conv3dbn_1.0.weight``,
 ``block_3d_2.convbn_3d_3.1.running_var``, ``deconv5.bias``, ...), so a
 reference state_dict loads as it is and
@@ -32,18 +36,24 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from .layers import Conv3DBlock, ConvBN3D, DeconvBN3D, he_normal_, soft_argmin
+from .layers import (Conv3DBlock, ConvBN3D, DeconvBN3D, he_normal_, remat,
+                     soft_argmin)
 
 
 class MSGCNet(nn.Module):
+    # children that serving keeps in float32 (the head)
+    FLOAT32_CHILDREN = ("deconv5",)
+
     def __init__(self, max_disp: int = 192, in_channels: int = 8,
                  num_filters: int = 32,
                  generator: Optional[torch.Generator] = None,
-                 compute_dtype: torch.dtype = torch.float32):
+                 compute_dtype: torch.dtype = torch.float32,
+                 remat: bool = False):
         super().__init__()
         Fn = num_filters
         self.max_disp = max_disp
         self.compute_dtype = compute_dtype
+        self.remat = remat
         self.conv3dbn_1 = ConvBN3D(in_channels, Fn)
         self.conv3dbn_2 = ConvBN3D(Fn, Fn)
         self.block_3d_1 = Conv3DBlock(Fn, 2 * Fn)
@@ -73,16 +83,19 @@ class MSGCNet(nn.Module):
     def forward(self, cv: torch.Tensor) -> torch.Tensor:
         """cv: [N, C, D_in, H_in, W_in] -> disparity [N, 2*H_in, 2*W_in]
         (float32)."""
-        x = F.relu(self.conv3dbn_1(cv.to(self.compute_dtype)))
-        res_l20 = x = F.relu(self.conv3dbn_2(x))
-        res_l23 = x = self.block_3d_1(x)
-        res_l26 = x = self.block_3d_2(x)
-        res_l29 = x = self.block_3d_3(x)
-        x = self.block_3d_4(x)
-        x = F.relu(self.deconvbn1(x) + res_l29)
-        x = F.relu(self.deconvbn2(x) + res_l26)
-        x = F.relu(self.deconvbn3(x) + res_l23)
-        x = F.relu(self.deconvbn4(x) + res_l20)
+        def stage(module, x):
+            return remat(module, x, on=self.remat)
+
+        x = F.relu(stage(self.conv3dbn_1, cv.to(self.compute_dtype)))
+        res_l20 = x = F.relu(stage(self.conv3dbn_2, x))
+        res_l23 = x = stage(self.block_3d_1, x)
+        res_l26 = x = stage(self.block_3d_2, x)
+        res_l29 = x = stage(self.block_3d_3, x)
+        x = stage(self.block_3d_4, x)
+        x = F.relu(stage(self.deconvbn1, x) + res_l29)
+        x = F.relu(stage(self.deconvbn2, x) + res_l26)
+        x = F.relu(stage(self.deconvbn3, x) + res_l23)
+        x = F.relu(stage(self.deconvbn4, x) + res_l20)
         hd = self.compute_dtype if self.training else torch.float32
         logits = F.conv_transpose3d(x.to(hd), self.deconv5.weight.to(hd),
                                     None, stride=2, padding=1,

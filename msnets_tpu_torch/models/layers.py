@@ -21,15 +21,21 @@ running variance, where ``nn.BatchNorm3d`` feeds the unbiased one.
 Eval folds BN into the preceding conv or deconv (``fold_batchnorm``), in
 float32, as the JAX eval path does: y = conv(x, k*a) + (beta - mu*a) with
 a = gamma * rsqrt(var + eps).
+
+``remat`` runs a stage through ``torch.utils.checkpoint`` (the JAX models'
+``nn.remat``): its activations are recomputed in the backward, and the
+recomputation leaves the BN running statistics as the forward left them.
 """
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import Optional
+from typing import Iterator, Optional, Tuple
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.matchers import _div_const
 
@@ -100,13 +106,19 @@ class BatchNorm3d(nn.BatchNorm3d):
         running_var  = 0.9 * running_var  + 0.1 * var
 
     where ``nn.BatchNorm3d`` puts the unbiased variance into running_var.
-    ``num_batches_tracked`` counts as in torch. Eval mode is torch's."""
+    ``num_batches_tracked`` counts as in torch. Eval mode is torch's.
+    While ``frozen_stats`` is set (``remat``'s recomputation) train mode
+    normalizes with the batch statistics and updates nothing."""
+
+    frozen_stats = False
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
         out, mean, var = _BatchNormTrain.apply(x, self.weight, self.bias,
                                                self.eps)
+        if self.frozen_stats:
+            return out
         m = self.momentum
         with torch.no_grad():
             self.running_mean.copy_((1 - m) * self.running_mean + m * mean)
@@ -200,6 +212,67 @@ def fold_batchnorm(module: nn.Module) -> nn.Module:
         else:
             fold_batchnorm(child)
     return module
+
+
+@contextlib.contextmanager
+def _frozen_stats(module: nn.Module) -> Iterator[None]:
+    bns = [m for m in module.modules() if isinstance(m, BatchNorm3d)]
+    for bn in bns:
+        bn.frozen_stats = True
+    try:
+        yield
+    finally:
+        for bn in bns:
+            bn.frozen_stats = False
+
+
+def remat(module: nn.Module, *args, on: bool = True):
+    """``module(*args)``; with ``on``, in training and with gradients
+    enabled, through ``torch.utils.checkpoint``: the backward recomputes the
+    stage's activations instead of keeping them. The recomputation runs
+    with the stage's BatchNorms' statistics frozen, so each updates its
+    running statistics once per forward, as under JAX's ``nn.remat``."""
+    if not (on and module.training and torch.is_grad_enabled()):
+        return module(*args)
+    return checkpoint(module, *args, use_reentrant=False,
+                      context_fn=lambda: (contextlib.nullcontext(),
+                                          _frozen_stats(module)))
+
+
+def _linear_resize_axis(x: torch.Tensor, axis: int,
+                        out_size: int) -> torch.Tensor:
+    """1-D linear resize with align_corners=True, in the JAX package's
+    index arithmetic (``msnets_tpu/models/layers.py:_linear_resize_axis``):
+    source positions arange(out) * float32((in-1)/(out-1))."""
+    in_size = x.shape[axis]
+    if in_size == out_size:
+        return x
+    if out_size == 1 or in_size == 1:
+        idx = torch.zeros(out_size, dtype=torch.long, device=x.device)
+        return x.index_select(axis, idx)
+    step = torch.tensor((in_size - 1) / (out_size - 1), dtype=torch.float32)
+    src = torch.arange(out_size, dtype=torch.float32) * step
+    lo = src.floor().long().clamp(0, in_size - 2)
+    w = src - lo.float()
+    shape = [1] * x.dim()
+    shape[axis] = out_size
+    w = w.view(shape).to(x.device)
+    a = x.index_select(axis, lo.to(x.device))
+    b = x.index_select(axis, (lo + 1).to(x.device))
+    return a * (1.0 - w) + b * w
+
+
+def resize_trilinear_align_corners(x: torch.Tensor,
+                                   out_dhw: Tuple[int, int, int],
+                                   axes: Tuple[int, int, int] = (2, 3, 4)
+                                   ) -> torch.Tensor:
+    """Trilinear resize with align_corners=True, one linear resize per axis
+    (D, then H, then W), written as gathers and products: ``F.interpolate``
+    computes its source indices otherwise and misses JAX in the last
+    bits."""
+    for ax, n in zip(axes, out_dhw):
+        x = _linear_resize_axis(x, ax, n)
+    return x
 
 
 def soft_argmin(logits: torch.Tensor, max_disp: int) -> torch.Tensor:

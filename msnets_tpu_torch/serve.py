@@ -19,10 +19,12 @@ The feature stage follows ``cfg.matching``: the 8-channel matching space
 2-channel raw-intensity volume (``features_mode="raw"``); the model's
 ``in_channels`` must be ``cfg.matching.feature_channels``.
 
-The server runs in ``cfg.model.compute_dtype``. In bfloat16 the BatchNorm
-affines are folded into the conv and deconv weights in float32 and cast
-once (the JAX eval math); the head (deconv5, softmax, soft-argmin) stays
-float32. Multi-GPU serving is not ported yet (ROADMAP).
+The server runs MS-GCNet or MS-PSMNet (``cfg.model.name``) in
+``cfg.model.compute_dtype``. In bfloat16 the BatchNorm affines are folded
+into the conv and deconv weights in float32 and cast once (the JAX eval
+math); the children a model names in ``FLOAT32_CHILDREN`` stay float32
+(MS-GCNet's head, deconv5; MS-PSMNet casts to float32 for its upsample and
+softmax itself). Multi-GPU serving is not ported yet (ROADMAP).
 
 Throughput comes from pipelining (``predict_stream``): up to ``depth`` frames
 are in flight. The host pads frame k+1 into a pinned buffer and queues its
@@ -113,7 +115,7 @@ class StereoServer:
         model.load_state_dict(state_dict)
         self.model = fold_batchnorm(model)
         for name, module in self.model.named_children():
-            if name != "deconv5":                  # the head stays float32
+            if name not in model.FLOAT32_CHILDREN:
                 module.to(self.dtype)
         self._lock = threading.Lock()
         self._stats = {"frames": 0, "bucket_hits": {}}

@@ -1,7 +1,8 @@
 """The port on the GPU: the census and census_aml kernels against their plain
 PyTorch versions, and the feature stage, the server (8-channel, 16-channel
-and raw variants, ``predict`` and ``predict_stream``), the train step and the
-checkpoint round trip on the card against the same code on the CPU. Every
+and raw variants, ``predict`` and ``predict_stream``; MS-PSMNet), the train
+step (MS-GCNet; MS-PSMNet with and without remat), the checkpoint round trip
+and the evaluator on the card against the same code on the CPU. Every
 test needs an NVIDIA GPU and skips without one; run them on the card with
 
     python -m pytest --noconftest -p no:cacheprovider -q tests/test_torch_port_cuda.py
@@ -13,11 +14,15 @@ import pytest
 import torch
 
 from msnets_tpu_torch import Config, ModelConfig, StereoServer
-from msnets_tpu_torch.config import MatchingConfig, TrainConfig
+from msnets_tpu_torch.config import (DataConfig, EvalConfig, MatchingConfig,
+                                     TrainConfig)
 from msnets_tpu_torch.data.pipeline import synthetic_train_batch
 from msnets_tpu_torch.engine import Trainer
 from msnets_tpu_torch.engine import checkpoint as ck
-from msnets_tpu_torch.models import MSGCNet
+from msnets_tpu_torch.data import pfm as pfmio
+from msnets_tpu_torch.data import pipeline
+from msnets_tpu_torch.engine import Evaluator
+from msnets_tpu_torch.models import MSGCNet, MSPSMNet
 from msnets_tpu_torch.ops.cuda.census import census, census_reference
 from msnets_tpu_torch.ops.cuda.census_aml import (census_aml,
                                                   census_aml_reference)
@@ -302,3 +307,135 @@ def test_predict_stream_on_the_card_equals_predict(cuda):
         np.testing.assert_array_equal(d, w)
     assert {b: q.qsize() for b, q in srv._slots.items()} == \
         {(64, 128): 2, (96, 160): 2, (64, 96): 2}
+
+
+def _psmnet_cfg(**train):
+    return Config(model=ModelConfig(name="MS-PSMNet", max_disp=32,
+                                    base_filters=8, compute_dtype="float32"),
+                  train=TrainConfig(crop_height=32, crop_width=64,
+                                    batch_size=2, **train))
+
+
+def test_psmnet_server_on_the_card_matches_the_cpu(cuda):
+    sd = MSPSMNet(32, 8, 8, generator=torch.Generator().manual_seed(3)).state_dict()
+    a, b = _pair((60, 120), 1)
+    cfg = _psmnet_cfg()
+    with fp32_reference():
+        before = (census_aml.launches, census.launches)
+        got = StereoServer(cfg, sd, device=cuda).predict(a, b)
+        assert (census_aml.launches - before[0],
+                census.launches - before[1]) == (1, 0)
+    ref = StereoServer(cfg, sd, device="cpu").predict(a, b)
+    assert got.shape == ref.shape == (60, 120)
+    np.testing.assert_allclose(got, ref, atol=2e-3)
+
+
+class _ReluDecisions:
+    """Records which inputs of each ``F.relu`` call pass (``record``), or
+    makes each call pass exactly the recorded ones (``replay``), so that a
+    second run takes the first run's side of every ReLU kink.
+
+    The step's ReLUs see about 1.1M inputs, and in float32 the card and
+    the CPU compute them about 1e-6 apart: an input that close to 0 lands
+    on one side of the kink on one device and on the other side on the
+    other, and its whole gradient enters one run and not the other (one
+    such input in dres3.conv1 moved that BN's bias gradient by 4.5%).
+    Replayed, the CPU run differs from relu only on such inputs, by no more
+    than their size."""
+
+    def __init__(self, monkeypatch):
+        self.masks, self.replay = [], False
+        self._relu = torch.nn.functional.relu
+        monkeypatch.setattr(torch.nn.functional, "relu", self)
+
+    def __call__(self, x, inplace=False):
+        if not self.replay:
+            self.masks.append((x > 0).cpu())
+            return self._relu(x, inplace)
+        mask = self.masks.pop(0).to(x.device)
+        return x * mask.to(x.dtype)
+
+
+@pytest.mark.parametrize("remat,scope", [(False, "all"), (True, "all"),
+                                         (True, "hourglass")])
+def test_psmnet_train_step_on_the_card_matches_the_cpu(cuda, remat, scope,
+                                                       monkeypatch):
+    """One float32 MS-PSMNet step (TF32 off) from the same weights, at the
+    bounds of the MS-GCNet card-against-CPU step: loss rel 1e-4, disparity
+    2e-3, BN running statistics 1e-5 (each BN updated once), gradients to
+    CARD_GRAD_RTOL, with the CPU run taking the card run's side of every
+    ReLU kink (``_ReluDecisions``)."""
+    cfg = _psmnet_cfg(remat=remat, remat_scope=scope)
+    b = synthetic_train_batch(32, 64, 32, cfg.matching, 2, 5, 0)
+    geom = (b["board_h"], b["board_w_left"], b["board_w_right"])
+    relu = _ReluDecisions(monkeypatch)
+    with fp32_reference():
+        gpu = Trainer(cfg, device=cuda, seed=3)
+        cpu = Trainer(cfg, device="cpu", seed=3)
+        before = census_aml.launches
+        mg, dg = gpu.step_fn(*geom)(b["iml"], b["imr"], b["disp"], 1e-3)
+        torch.cuda.synchronize()
+        assert census_aml.launches - before == 2
+        relu.replay = True
+        mc, dc = cpu.step_fn(*geom)(b["iml"], b["imr"], b["disp"], 1e-3)
+        assert relu.masks == []                 # the same calls, in order
+    assert float(mg["loss"]) == pytest.approx(float(mc["loss"]), rel=1e-4)
+    np.testing.assert_allclose(dg.cpu().numpy(), dc.numpy(), atol=2e-3)
+    sg, sc = gpu.model.state_dict(), cpu.model.state_dict()
+    for k, v in sc.items():
+        if k.endswith("num_batches_tracked"):
+            assert int(sg[k]) == int(v) == 1, k
+        elif "running" in k:
+            np.testing.assert_allclose(sg[k].cpu().numpy(), v.numpy(),
+                                       rtol=1e-5, atol=1e-5, err_msg=k)
+    errs = {}
+    for (k, pg), (_, pc) in zip(gpu.model.named_parameters(),
+                                cpu.model.named_parameters()):
+        want = pc.grad.double()
+        errs[k] = ((pg.grad.cpu().double() - want).norm() / want.norm()).item()
+    worst = max(errs, key=errs.get)
+    print(f"MS-PSMNet remat={remat} {scope}: worst gradient relative L2 "
+          f"error {errs[worst]:.3g} ({worst})")
+    assert errs[worst] <= CARD_GRAD_RTOL, (worst, errs[worst])
+
+
+def test_evaluator_on_the_card_matches_the_cpu(cuda, tmp_path, monkeypatch):
+    """A KITTI-layout tree of 3 frames (60x120, ground truth as PFM), read
+    through the pipeline's read_gray seam (the card's machine has no
+    OpenCV): frames, threshold and averages equal to 1e-4, PFMs to 2e-3."""
+    rng = np.random.default_rng(2)
+    frames, entries = {}, []
+    (tmp_path / "disp_occ_0_pfm").mkdir()
+    for i in range(3):
+        base = rng.integers(0, 256, (60, 126), dtype=np.uint8)
+        name = f"{i:06d}_10.png"
+        frames[str(tmp_path / "image_0" / name)] = base[:, 6:]
+        frames[str(tmp_path / "image_1" / name)] = base[:, :120]
+        pfmio.write_pfm(str(tmp_path / "disp_occ_0_pfm" / f"{i:06d}_10.pfm"),
+                        np.full((60, 120), 6.0, np.float32))
+        entries.append(name)
+    (tmp_path / "kt15.list").write_text("\n".join(entries) + "\n")
+    monkeypatch.setattr(pipeline, "read_gray", lambda path: frames[path])
+    sd = MSGCNet(32, 8, 8, generator=torch.Generator().manual_seed(4)).state_dict()
+    out = {}
+    for dev in ("cuda", "cpu"):
+        cfg = Config(model=ModelConfig(max_disp=32, base_filters=8,
+                                       compute_dtype="float32"),
+                     data=DataConfig(data_path=str(tmp_path), kitti2015=True,
+                                     test_list=str(tmp_path / "kt15.list")),
+                     eval=EvalConfig(result_dir=str(tmp_path / dev),
+                                     save_color=False))
+        with fp32_reference():
+            before = census_aml.launches
+            out[dev] = Evaluator(cfg, sd, device=dev).run(log=lambda *a: None)
+            if dev == "cuda":
+                assert census_aml.launches - before == 3
+    assert out["cuda"]["frames"] == out["cpu"]["frames"] == 3
+    assert out["cuda"]["threshold"] == out["cpu"]["threshold"] == 3.0
+    for k in ("avg_epe", "avg_bad"):
+        assert out["cuda"][k] == pytest.approx(out["cpu"][k], abs=1e-4)
+    for name in entries:
+        pfm = name[:-4] + ".pfm"
+        np.testing.assert_allclose(pfmio.read_pfm(str(tmp_path / "cuda" / pfm)),
+                                   pfmio.read_pfm(str(tmp_path / "cpu" / pfm)),
+                                   atol=2e-3)

@@ -118,7 +118,7 @@ def test_soft_argmin_peaky():
 
 
 @pytest.mark.parametrize("cfg,err", [
-    (ModelConfig(name="MS-PSMNet"), NotImplementedError),
+    (ModelConfig(name="MS-PSMNet", quarter_input=True), NotImplementedError),
     (ModelConfig(quarter_input=True), NotImplementedError),
     (ModelConfig(quant_eval=True), NotImplementedError),
     (ModelConfig(name="other"), ValueError),
@@ -129,5 +129,9 @@ def test_build_model_rejects_unported(cfg, err):
 
 
 def test_state_dict_from_jax_rejects_psmnet():
-    with pytest.raises(NotImplementedError):
+    """An MS-PSMNet tree without its variables is refused (the key map
+    names every one), as is an unknown model."""
+    with pytest.raises(KeyError):
         state_dict_from_jax({"params": {}, "batch_stats": {}}, "MS-PSMNet")
+    with pytest.raises(ValueError):
+        state_dict_from_jax({"params": {}, "batch_stats": {}}, "other")

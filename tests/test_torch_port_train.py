@@ -15,8 +15,8 @@ from msnets_tpu.config import (Config as JaxConfig, DataConfig as JaxDataConfig,
 from msnets_tpu.engine import Trainer as JaxTrainer, TrainState
 from msnets_tpu.models.layers import PackedPhaseBN
 from msnets_tpu.models.torch_convert import convert_state_dict
-from msnets_tpu_torch.config import (Config, DataConfig, MatchingConfig,
-                                     ModelConfig, TrainConfig)
+from msnets_tpu_torch.config import (Config, DataConfig, EvalConfig,
+                                     MatchingConfig, ModelConfig, TrainConfig)
 from msnets_tpu_torch.data.pipeline import synthetic_train_batch
 from msnets_tpu_torch.engine import Trainer, epoch_lr
 from msnets_tpu_torch.models.layers import BatchNorm3d
@@ -302,7 +302,7 @@ def test_epoch_lr():
 
 
 @pytest.mark.parametrize("name", ["MatchingConfig", "ModelConfig",
-                                  "TrainConfig", "DataConfig"])
+                                  "TrainConfig", "DataConfig", "EvalConfig"])
 def test_config_defaults_match_jax(name):
     """Every field the port carries has the JAX package's default."""
     import dataclasses
@@ -319,7 +319,8 @@ def test_config_json_round_trip_and_jax_json():
     cfg = Config(matching=MatchingConfig(num_channels=16, board_h=4),
                  model=ModelConfig(max_disp=64, compute_dtype="float32"),
                  train=TrainConfig(lr=2e-3, grad_accum=2),
-                 data=DataConfig(kitti2015=True), mode="test")
+                 data=DataConfig(kitti2015=True),
+                 eval=EvalConfig(result_dir="r", save_color=False), mode="test")
     assert Config.from_json(cfg.to_json()) == cfg
     jcfg = JaxConfig(model=JaxModelConfig(max_disp=64, quant_eval=True,
                                           mid_deconv_mode="conv_shuffle"),
@@ -333,7 +334,11 @@ def test_trainer_config_checks():
     with pytest.raises(ValueError):
         Trainer(_cfg(batch_size=3, grad_accum=2), device="cpu")
     with pytest.raises(NotImplementedError):
-        Trainer(Config(train=TrainConfig(remat=True)), device="cpu")
+        Trainer(Config(model=ModelConfig(quarter_input=True)), device="cpu")
+    with pytest.raises(ValueError):
+        Trainer(Config(model=ModelConfig(name="MS-PSMNet"),
+                       train=TrainConfig(remat=True, remat_scope="stem")),
+                device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             Trainer(_cfg())
