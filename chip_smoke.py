@@ -9,8 +9,8 @@ Phases, each of which fails the run on error:
   1. device     the card's name, power limit and maximum SM clock
                 (nvidia-smi);
   2. build      nvcc builds every kernel of msnets_tpu_torch/csrc/ (census,
-                census_aml, int8_conv3d), and each again with
-                -DMSN_PHASES=1 for phase 9, all at once;
+                census_aml, int8_conv3d, int8_quantize), and the census
+                kernels again with -DMSN_PHASES=1 for phase 9, all at once;
   3. kernel     census_aml against its plain PyTorch version (cost exact, AML
                 atol 1e-6) and census against its plain version (exact), at
                 the serving and training paths' shapes and at the tiling's
@@ -127,7 +127,8 @@ Phases, each of which fails the run on error:
                 disparities bit for bit the others' and within 1e-3 px of
                 the one-process server of the same weights, and one int8
                 MS-GCNet request (quant_eval, dynamic, scope "all") at
-                256x512 at (1, 2, 2), int8_conv3d twice on each rank;
+                256x512 at (1, 2, 2), int8_quantize and int8_conv3d twice
+                on each rank;
                 census_aml once a request on each rank (census once a
                 16-channel request);
                 the memory one 375x1242 forward adds on each rank beside one
@@ -165,28 +166,38 @@ Phases, each of which fails the run on error:
                 scored on 2 family-A scenes and 2 family-B KITTI frames at
                 375x1242: every score finite, the colour PNGs written,
                 census_aml 8 times (the ms arm's 4 samples and 4 frames);
- 20. serve_quant int8 eval (models/quant.py): (a) the int8_conv3d kernel
-                against its plain version (float64 conv3d on the host),
-                exactly, at edge shapes (stride 1 and 2, per-dim padding,
-                cin 4, 5, 8 and 64, odd D, H and W, N = 2, H = 1) and at
-                the production convs' full H x W and widths with D cut to
-                4; then every shape the servers give it at full size
-                (conv3dbn_2 and block_3d_1's entry at 256x512 and at
-                375x1242, block_3d_2's entry at 375x1242; MS-PSMNet's
-                convs share these shapes): exact against the plain
-                version on the card, the profiler's time, the bound, the
-                plain version's time and a bf16 F.conv3d yardstick; (b) StereoServer at Config() widths (F=32,
-                max_disp 192, bf16), seeded random weights, MS-GCNet
+ 20. serve_quant int8 eval (models/quant.py): (a) the int8 conv's SASS
+                (cuobjdump): int8 tensor-core instructions, no IDP; the
+                int8_conv3d kernel, raw (int32) and fused (its
+                dequantization in bf16 and float32, per-sample and scalar
+                scales), and the int8_quantize kernel against their plain
+                versions (on the host), bit for bit, at edge shapes
+                (stride 1 and 2, per-dim padding, cin 4, 5, 8, 32, 64 and
+                128, cout 8 to 64, odd D, H and W, N = 2, H = 1, a ragged
+                third ow tile) and at the production convs' full H x W and
+                widths with D cut to 4; then every shape the servers give
+                them at full size (conv3dbn_2 and block_3d_1's entry at
+                256x512 and at 375x1242, block_3d_2's entry at 375x1242;
+                MS-PSMNet's convs share these shapes): bit for bit against
+                the plain versions on the card, the profiler's times (fused
+                and raw; median of three sessions), the bounds, the plain
+                versions' times, a bf16 F.conv3d yardstick and the dynamic
+                scale's aminmax pass; (b) StereoServer at Config() widths
+                (F=32, max_disp 192, bf16), seeded random weights, MS-GCNet
                 scope "all" dynamic, scope "stem" dynamic, "all" static
                 (calibrated by a "calib" server on one frame of each
                 bucket) and MS-PSMNet dynamic: 3 requests at 256x512 and
-                one at 375x1242, int8_conv3d 2/3, 1/1, 2/3 and 6/9 times
-                a request and census_aml once; the mean and p99
-                |d disparity| against the float32 server (TF32 off) under
-                phase 6's 1 px; ms/pair beside the bf16 server's;
+                one at 375x1242, int8_conv3d and int8_quantize 2/3, 1/1,
+                2/3 and 6/9 times a request and census_aml once; the mean
+                and p99 |d disparity| against the float32 server (TF32 off)
+                under phase 6's 1 px; ms/pair beside the bf16 server's;
+                then one MS-PSMNet packed_eval_outer=False request at
+                375x1242 (its int8 count from models.quant_convs) against
+                the packed_eval_outer=True server under 1 px;
                 (c) the CLI's --mode test --quant_eval 1 --quant_mode
                 static on phase 15's grey tree: finite scores, one
-                calibration forward, int8_conv3d 3 times a frame.
+                calibration forward, int8_conv3d and int8_quantize 3 times
+                a frame.
 Then a {"kernels": [...]} line, and as the last line
 {"ok": true, "device": {...}}. Without CUDA, or without the
 package beside this file, it exits non-zero and prints no result.
@@ -312,24 +323,26 @@ def phase_device(state):
 
 
 def phase_build(state):
-    """Every kernel of csrc/, and each again with -DMSN_PHASES=1 for the
-    "phases" phase: one nvcc per library, all started together."""
+    """Every kernel of csrc/, and the census kernels again with
+    -DMSN_PHASES=1 for the "phases" phase: one nvcc per library, all
+    started together."""
     from concurrent.futures import ThreadPoolExecutor
     from msnets_tpu_torch.ops.cuda import _build
     t0 = time.perf_counter()
+    builds = ((None, ()), (("census", "census_aml"), PHASE_DEFINES))
     with ThreadPoolExecutor(2) as pool:
-        jobs = [pool.submit(_build.build, None, d) for d in ((), PHASE_DEFINES)]
+        jobs = [pool.submit(_build.build, n, d) for n, d in builds]
         built = [(name + "".join(f" -D{x}" for x in d), info)
-                 for d, job in zip(((), PHASE_DEFINES), jobs)
+                 for (_, d), job in zip(builds, jobs)
                  for name, info in job.result().items()]
     log(f"build: {len(built)} kernel libraries in "
         f"{time.perf_counter() - t0:.2f} s")
     for name, info in built:
         log(f"  {name}: {info['seconds']:.2f} s -> {info['path']}")
         for line in info["log"].splitlines():
-            entry = re.search(r"Compiling entry .*?((?:census_aml|census|int8_conv3d)_tile)ILi(\d+)E", line)
+            entry = re.search(r"Compiling entry function '([^']+)'", line)
             if entry:
-                log(f"    {entry[1]}<{entry[2]}>:")
+                log(f"    {entry[1]}:")
             elif "registers" in line or "spill" in line or "error" in line:
                 log("   ", line.strip())
 
@@ -538,27 +551,30 @@ def _check_disp(d, shape, max_disp):
     assert d.min() >= 0 and d.max() < max_disp, (d.min(), d.max())
 
 
-def _counts():
+def _counted():
+    """The kernel wrappers whose launches the main paths count."""
     from msnets_tpu_torch.ops.cuda.census import census
     from msnets_tpu_torch.ops.cuda.census_aml import census_aml
     from msnets_tpu_torch.ops.cuda.int8_conv3d import int8_conv3d
-    return {"census_aml": census_aml.launches, "census": census.launches,
-            "int8_conv3d": int8_conv3d.launches}
+    from msnets_tpu_torch.ops.cuda.int8_quantize import int8_quantize
+    return {"census_aml": census_aml, "census": census,
+            "int8_conv3d": int8_conv3d, "int8_quantize": int8_quantize}
+
+
+def _counts():
+    return {k: f.launches for k, f in _counted().items()}
 
 
 def _want(census_aml=0, census=0, int8_conv3d=0):
-    """The kernels' launch counts a path must show."""
+    """The kernels' launch counts a path must show: each int8 conv
+    quantizes its input once (int8_quantize, then the fused int8_conv3d)."""
     return {"census_aml": census_aml, "census": census,
-            "int8_conv3d": int8_conv3d}
+            "int8_conv3d": int8_conv3d, "int8_quantize": int8_conv3d}
 
 
 def _reset_counts():
-    from msnets_tpu_torch.ops.cuda.census import census
-    from msnets_tpu_torch.ops.cuda.census_aml import census_aml
-    from msnets_tpu_torch.ops.cuda.int8_conv3d import int8_conv3d
-    census_aml.launches = 0
-    census.launches = 0
-    int8_conv3d.launches = 0
+    for f in _counted().values():
+        f.launches = 0
 
 
 def _serve(state, tag, cfg, requests, per_request, timed_runs):
@@ -2183,6 +2199,9 @@ INT8_CASES = [
     ("H=1 cin8", (1, 4, 1, 6, 8), 16, 1, (1, 1, 1)),
     ("cin5 zero-padded", (1, 4, 5, 6, 5), 12, 1, (1, 1, 1)),
     ("cin64 s2", (1, 6, 10, 12, 64), 64, 2, (1, 1, 1)),
+    ("cin32 cout40 N2 ragged third ow tile", (2, 3, 4, 300, 32), 40, 1,
+     (1, 1, 1)),
+    ("cin128 cout40 s2 pad 010", (1, 4, 5, 140, 128), 40, 2, (0, 1, 0)),
     # the production convs at the 256x512 bucket's full H x W and widths,
     # D cut to 4 planes so that the float64 plain version on the host
     # stays seconds long
@@ -2218,18 +2237,89 @@ def _int8_operands(shape, cout, rng):
     return torch.from_numpy(xq), torch.from_numpy(wq)
 
 
+def _dequant_operands(n, cout, rng):
+    """A scale a sample (or one for all when ``n`` is 0), kernel scales and
+    a bias, float32."""
+    import torch
+    f = lambda a: torch.from_numpy(np.asarray(a, np.float32))  # noqa: E731
+    sx = f(rng.uniform(1e-3, 5e-2, n)) if n else f(np.float32(0.02))
+    return sx, f(rng.uniform(1e-4, 1e-2, cout)), f(rng.standard_normal(cout))
+
+
+def _padded(xq):
+    """An int8 volume's channels zero-padded as int8_quantize writes them."""
+    import torch.nn.functional as F
+    from msnets_tpu_torch.ops.cuda.int8_conv3d import padded_channels
+    c = xq.shape[-1]
+    return F.pad(xq, (0, padded_channels(c) - c)).contiguous()
+
+
+def _int8_sass(state):
+    """The int8 conv library's SASS (cuobjdump): int8 tensor-core
+    instructions (IMMA, or IGMMA for wgmma) and no IDP (__dp4a)."""
+    from collections import Counter
+    from msnets_tpu_torch.ops.cuda import _build
+    tool = Path(_build.find_nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(tool), "-sass",
+                           str(_build.library_path("int8_conv3d"))],
+                          capture_output=True, text=True, timeout=300,
+                          check=True).stdout
+    ops = Counter(re.findall(r"\b((?:IMMA|IGMMA|HGMMA|IDP)[.\w]*)", sass))
+    log(f"int8_conv3d SASS (cuobjdump -sass): {dict(ops)}")
+    assert any(k.startswith(("IMMA", "IGMMA")) for k in ops), ops
+    assert not any(k.startswith("IDP") for k in ops), ops
+    state["int8_sass"] = dict(ops)
+
+
+def _profiled_ms(runs: dict, patterns: dict) -> dict:
+    """Device ms of one launch of each kernel: ``runs[k]()`` launches the
+    kernel whose profiler name matches ``patterns[k]`` once; a profiler
+    session calls each 10 times, and each kernel's time is the median of
+    up to three sessions that record at least 9 of its launches. Where no
+    session of six records them (the profiler now and then drops
+    launches), CUDA events time the calls, the host's launch included.
+    ``{k: (ms, "profiler" or "events")}``."""
+    got = {k: [] for k in runs}
+    for _ in range(6):
+        seen = device_kernels_ms(lambda: [f() for f in runs.values()], 10)
+        for k, pat in patterns.items():
+            hits = [(v, c) for name, (v, c) in seen.items()
+                    if re.search(pat, name)]
+            if len(hits) == 1 and hits[0][1] >= 9 and len(got[k]) < 3:
+                got[k].append(hits[0][0])
+        if all(len(v) == 3 for v in got.values()):
+            break
+    return {k: (float(np.median(got[k])), "profiler") if got[k] else
+            (cuda_time_ms(f, 10), "events") for k, f in runs.items()}
+
+
+def _bound(t):
+    """``t``'s bound from its "bytes" and "ops" (with their rate)."""
+    t["bytes_ms"] = t["bytes"] / HBM_BYTES_PER_S * 1e3
+    t["ops_ms"] = t["ops"] / t.pop("ops_rate") * 1e3
+    t["bound_ms"] = max(t["bytes_ms"], t["ops_ms"])
+    t["bound_by"] = "bytes" if t["bytes_ms"] >= t["ops_ms"] else "operations"
+    return t
+
+
 def _int8_kernel(state):
-    """(a) int8_conv3d against its plain version computed on the host CPU
-    in float64, exactly (int32 equality), at the edge shapes and the
-    production convs cut in D; then each production conv at full size
-    (where every thread of the grid-stride loop takes many voxels): exact
-    against the plain version on the card, the kernel's profiler time, its
-    bound, the plain version's time and a bf16 F.conv3d of the same shape
-    as a yardstick."""
+    """(a) int8_quantize and int8_conv3d, raw and fused, against their
+    plain versions: at the edge shapes exactly (raw int32 equality; fused
+    bfloat16 and float32 and int8_quantize bit for bit) against the plain
+    versions computed on the host CPU; then at every shape the servers give
+    the conv at full size (where the persistent blocks walk many tiles)
+    exactly against the plain versions on the card, with each kernel's
+    profiler time, its bound, its plain version's time and, for the conv,
+    a bf16 F.conv3d of the same shape as a yardstick; and the conv's SASS."""
     import torch
     import torch.nn.functional as F
-    from msnets_tpu_torch.ops.cuda.int8_conv3d import (int8_conv3d,
-                                                       int8_conv3d_reference)
+    from msnets_tpu_torch.models.quant import sample_absmax
+    from msnets_tpu_torch.ops.cuda.int8_conv3d import (
+        dequantize_reference, int8_conv3d, int8_conv3d_dequant,
+        int8_conv3d_reference, pack_weights)
+    from msnets_tpu_torch.ops.cuda.int8_quantize import (
+        int8_quantize, int8_quantize_reference)
+    _int8_sass(state)
     rng = np.random.default_rng(20)
     for name, shape, cout, stride, pad in INT8_CASES:
         xq, wq = _int8_operands(shape, cout, rng)
@@ -2238,62 +2328,108 @@ def _int8_kernel(state):
         torch.cuda.synchronize()
         want = int8_conv3d_reference(xq, wq, stride, pad)
         diff = int((got.cpu().long() - want.long()).abs().max())
-        log(f"int8_conv3d {name}: x {shape} cout {cout} stride {stride} "
-            f"padding {pad} -> {tuple(got.shape)}, max |d| {diff} against "
-            f"the float64 plain version on the host "
-            f"({time.perf_counter() - t0:.2f} s)")
         assert got.dtype == torch.int32 and torch.equal(got.cpu(), want), name
+        xp, wp = _padded(xq), pack_weights(wq)
+        fused = []
+        for n in (shape[0], 0):
+            sx, sk, b = _dequant_operands(n, cout, rng)
+            for dt in (torch.bfloat16, torch.float32):
+                y = int8_conv3d_dequant(xp.cuda(), wp.cuda(), sx.cuda(),
+                                        sk.cuda(), b.cuda(), stride, pad, dt)
+                ok = torch.equal(y.cpu(), dequantize_reference(want, sx, sk,
+                                                               b, dt))
+                fused.append(ok)
+                assert ok, (name, n, dt)
+            for dt in (torch.bfloat16, torch.float32):
+                x = torch.from_numpy(rng.standard_normal(
+                    (shape[0], shape[4]) + shape[1:4]).astype(np.float32)
+                    * 9.0).to(dt)
+                q = int8_quantize(x.cuda(), sx.cuda())
+                assert torch.equal(q.cpu(), int8_quantize_reference(x, sx)), (
+                    name, n, dt)
+        log(f"int8 {name}: x {shape} cout {cout} stride {stride} padding "
+            f"{pad} -> {tuple(got.shape)}: raw max |d| {diff}; fused bf16 "
+            f"and float32 ({len(fused)} runs, per-sample and scalar scales) "
+            f"and int8_quantize bit for bit, against the plain versions on "
+            f"the host ({time.perf_counter() - t0:.2f} s)")
     state["max_abs_err"]["int8_conv3d"] = 0.0
-    times = {}
+    state["max_abs_err"]["int8_quantize"] = 0.0
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    conv, quant = {}, {}
     for name, shape, cout, stride in INT8_TIMED:
         xq, wq = (t.cuda() for t in _int8_operands(shape, cout, rng))
+        wp = pack_weights(wq)
+        sx, sk, b = (t.cuda() for t in _dequant_operands(1, cout, rng))
         xb = xq.permute(0, 4, 1, 2, 3).to(torch.bfloat16).contiguous()
         wb = wq.permute(0, 4, 1, 2, 3).to(torch.bfloat16).contiguous()
-        run = lambda: int8_conv3d(xq, wq, stride)                # noqa: E731
-        plain = lambda: int8_conv3d_reference(xq, wq, stride)    # noqa: E731
+        raw = lambda: int8_conv3d(xq, wq, stride)                # noqa: E731
+        fused = lambda: int8_conv3d_dequant(                     # noqa: E731
+            xq, wp, sx, sk, b, stride, (1, 1, 1), torch.bfloat16)
+        plain = lambda: dequantize_reference(                    # noqa: E731
+            int8_conv3d_reference(xq, wq, stride), sx, sk, b, torch.bfloat16)
         library = lambda: F.conv3d(xb, wb, None, stride, 1)       # noqa: E731
         library()
-        out = plain()
-        got = run()
-        diff = int((got.long() - out.long()).abs().max())
-        log(f"int8_conv3d {name} full size: max |d| {diff} against the "
-            f"float64 plain version on the card")
-        assert got.dtype == torch.int32 and torch.equal(got, out), name
-        del got
-        t = {"plain_ms": cuda_time_ms(plain, 2),
-             "library_ms": cuda_time_ms(library, 10),
-             "ms_events": cuda_time_ms(run, 10)}
-        ms = []
-        for _ in range(6):
-            seen = device_kernels_ms(run, 10)
-            ours = [(v, c) for k, (v, c) in seen.items()
-                    if "int8_conv3d_tile" in k]
-            if len(ours) == 1 and ours[0][1] >= 9:
-                ms.append(ours[0][0])
-            if len(ms) == 3:
-                break
-        assert ms, f"no profiler session recorded 9 of 10 launches: {seen}"
-        t["ms"] = float(np.median(ms))
-        t["bytes"] = xq.numel() + wq.numel() + 4 * out.numel()
-        t["ops"] = 2 * out.numel() * 27 * shape[-1]
-        t["bytes_ms"] = t["bytes"] / HBM_BYTES_PER_S * 1e3
-        t["ops_ms"] = t["ops"] / INT8_OPS_PER_S * 1e3
-        t["bound_ms"] = max(t["bytes_ms"], t["ops_ms"])
-        t["bound_by"] = "bytes" if t["bytes_ms"] >= t["ops_ms"] else "operations"
+        acc = int8_conv3d_reference(xq, wq, stride)
+        assert torch.equal(raw(), acc), name
+        for dt in (torch.bfloat16, torch.float32):
+            assert torch.equal(
+                int8_conv3d_dequant(xq, wp, sx, sk, b, stride, (1, 1, 1), dt),
+                dequantize_reference(acc, sx, sk, b, dt)), (name, dt)
+        log(f"int8_conv3d {name} full size: raw exact, fused bf16 and "
+            f"float32 bit for bit against the plain version on the card")
+        out = acc.numel()
+        del acc
+        # the conv's input as the server quantizes it: bf16 [N, C, D, H, W]
+        n, d, h, w, c = shape
+        x = (torch.randn((n, c, d, h, w), device="cuda", generator=gen)
+             * 3.0).to(torch.bfloat16)
+        qrun = lambda: int8_quantize(x, sx)                      # noqa: E731
+        qplain = lambda: int8_quantize_reference(x, sx)          # noqa: E731
+        assert torch.equal(qrun(), qplain()), name
+        ms = _profiled_ms({"fused": fused, "raw": raw, "quantize": qrun},
+                          {"fused": r"int8_conv3d_wgmma<.*, 2>\(",
+                           "raw": r"int8_conv3d_wgmma<.*, 0>\(",
+                           "quantize": r"int8_quantize_tile<"})
+        t = _bound({"ms": ms["fused"][0], "timing": ms["fused"][1],
+                    "ms_raw": ms["raw"][0],
+                    "plain_ms": cuda_time_ms(plain, 2),
+                    "library_ms": cuda_time_ms(library, 10),
+                    "bytes": xq.numel() + wq.numel() + 2 * out,
+                    "ops": 2 * out * 27 * shape[-1],
+                    "ops_rate": INT8_OPS_PER_S})
+        t["raw_bound_ms"] = max((t["bytes"] + 2 * out) / HBM_BYTES_PER_S * 1e3,
+                                t["ops_ms"])
         log(f"int8_conv3d {name} x {shape} cout {cout} stride {stride}: "
-            f"device {t['ms']:.4f} ms/call (profiler), events "
-            f"{t['ms_events']:.4f} ms/call (the wrapper's weight reorder "
-            f"included); plain (float64 conv3d on the card) "
+            f"fused (bf16 out) {t['ms']:.4f} ms/call, raw (int32 out) "
+            f"{t['ms_raw']:.4f} ms ({t['timing']}); plain "
+            f"(float64 conv3d and the dequantization on the card) "
             f"{t['plain_ms']:.3f} ms; bf16 F.conv3d yardstick "
-            f"{t['library_ms']:.4f} ms; bound {t['bound_ms']:.4f} ms by "
-            f"{t['bound_by']}: bytes {t['bytes_ms']:.4f} ms "
+            f"{t['library_ms']:.4f} ms; fused bound {t['bound_ms']:.4f} ms "
+            f"by {t['bound_by']}: bytes {t['bytes_ms']:.4f} ms "
             f"({t['bytes'] / 1e6:.1f} MB), operations {t['ops_ms']:.4f} ms "
-            f"({t['ops'] / 1e9:.1f} G at 1,979 TOPS); "
-            f"{t['ms'] / t['bound_ms']:.2f}x the bound [{state['smi']}]")
-        times[name] = t
-        del xq, wq, xb, wb, out
+            f"({t['ops'] / 1e9:.1f} G at 1,979 TOPS), "
+            f"{t['ms'] / t['bound_ms']:.2f}x; raw bound "
+            f"{t['raw_bound_ms']:.4f} ms, {t['ms_raw'] / t['raw_bound_ms']:.2f}x"
+            f" [{state['smi']}]")
+        conv[name] = t
+        q = _bound({"ms": ms["quantize"][0], "timing": ms["quantize"][1],
+                    "plain_ms": cuda_time_ms(qplain, 5), "library_ms": None,
+                    "bytes": 2 * x.numel() + qrun().numel(),
+                    "ops": x.numel(), "ops_rate": F32_OPS_PER_S})
+        sample_absmax(x)                                    # warm
+        q["absmax_ms"] = cuda_time_ms(lambda: sample_absmax(x), 10)
+        log(f"int8_quantize {name} input bf16 {tuple(x.shape)}: bit for bit "
+            f"against the plain version on the card; {q['ms']:.4f} ms/call "
+            f"({q['timing']}), plain {q['plain_ms']:.4f} ms, bound "
+            f"{q['bound_ms']:.4f} ms by {q['bound_by']} "
+            f"({q['bytes'] / 1e6:.1f} MB), {q['ms'] / q['bound_ms']:.2f}x; "
+            f"the dynamic scale's aminmax pass {q['absmax_ms']:.4f} ms "
+            f"(events) [{state['smi']}]")
+        quant[name] = q
+        del x, xb, wb, xq, wq
         torch.cuda.empty_cache()
-    state["int8_conv3d"] = dict(times["conv3dbn_2"], by_conv=times)
+    state["int8_conv3d"] = dict(conv["conv3dbn_2"], by_conv=conv)
+    state["int8_quantize"] = dict(quant["conv3dbn_2"], by_conv=quant)
 
 
 def _serve_quant_cfg(**model):
@@ -2406,10 +2542,43 @@ def _quant_servers(state):
             f"server's in the same turns) [{state['smi']}]")
         state.setdefault(f"serve_quant_{key}", {}).update(
             predict_ms=pred, model_ms=model_ms, kitti_ms=kitti)
+    extra = _psmnet_full_outer(state, servers, sds)
+    total = {k: v + extra[k] for k, v in total.items()}
     servers.clear()
     gc.collect()
     torch.cuda.empty_cache()
     return total
+
+
+# the volume of a 375x1242 request (its 384x1248 bucket at max_disp 192)
+KITTI_VOLUME = (1, 8, 96, 192, 624)
+
+
+def _psmnet_full_outer(state, servers, sds):
+    """One dynamic MS-PSMNet request at 375x1242 with packed_eval_outer=False
+    (dres3's and dres4's conv1 read the full layout and run int8 past the
+    stride-2 gate): the int8 convs models.quant_convs gives, and the
+    disparity against the packed_eval_outer=True server's."""
+    from msnets_tpu_torch.models import quant_convs
+    cfg = _serve_quant_cfg(name="MS-PSMNet", quant_eval=True,
+                           packed_eval_outer=False)
+    n_int8 = sum(quant_convs("MS-PSMNet", cfg.model, KITTI_VOLUME).values())
+    server = _quant_server(cfg, sds["MS-PSMNet"], warm=False)
+    kl, kr = textured_pair(375, 1242, 40, 14)
+    server.predict(kl, kr)                      # warm the bucket
+    _reset_counts()                             # main path starts here
+    d = server.predict(kl, kr)
+    launches = _counts()                        # main path ends here
+    _check_disp(d, kl.shape, cfg.model.max_disp)
+    diff = np.abs(d - servers["psmnet"].predict(kl, kr))
+    log(f"serve_quant psmnet packed_eval_outer=False: one request at "
+        f"375x1242, launches {launches} (int8 convs {n_int8} by "
+        f"quant_convs); |d disparity| against the packed_eval_outer=True "
+        f"server mean {diff.mean():.4g} px, max {diff.max():.4g} px")
+    assert launches == _want(census_aml=1, int8_conv3d=n_int8), launches
+    assert diff.mean() < PRECISION_MEAN_PX, diff.mean()
+    state["serve_quant_psmnet_full_outer"] = {"mean_px": float(diff.mean())}
+    return launches
 
 
 def _quant_cli(state):
@@ -2495,12 +2664,14 @@ def main() -> int:
                        "msnets_tpu/ops/pallas/census_aml_pallas.py:94"),
         "census": ("msnets_tpu_torch/csrc/census.cu",
                    "msnets_tpu/ops/pallas/census_pallas.py:79"),
-        # no Pallas kernel: the XLA int8 convolutions of the quantized
-        # lowerings, on the int8 activations of _quant_act
+        # no Pallas kernels: the XLA int8 convolutions of the quantized
+        # lowerings, and _quant_act, which quantizes their inputs
         "int8_conv3d": ("msnets_tpu_torch/csrc/int8_conv3d.cu",
-                        "msnets_tpu/models/layers.py:89 (_quant_act) and "
-                        "the XLA int8 convolutions of layers.py:218-272, "
-                        "333-381, 483-540"),
+                        "msnets_tpu/models/layers.py:218-272, 333-381, "
+                        "483-540 (XLA int8 convolutions)"),
+        "int8_quantize": ("msnets_tpu_torch/csrc/int8_quantize.cu",
+                          "msnets_tpu/models/layers.py:89 (_quant_act, "
+                          "XLA)"),
     }
     kernels = []
     for name, (source, replaces) in sources.items():

@@ -5,10 +5,10 @@ The port keeps its own copy of the JAX package's configuration
 the run mode. Field names and defaults are the same, so a reader can move
 between the two packages; the classes are frozen dataclasses as there. The
 JAX package's TPU-only model fields (the packed lowerings' knobs) are not
-carried; ``Config.from_json`` skips them, except ``packed_eval_outer=False``
-together with ``quant_eval``, which would quantize other convs and is
-refused. ``MeshConfig`` is carried: the port runs its data axis
-(``parallel/``).
+carried and ``Config.from_json`` skips them, except MS-PSMNet's
+``packed_eval_outer``: it moves which convs run int8 under ``quant_eval``
+(``models/psmnet.py``'s ``quant_sites``) and no float output.
+``MeshConfig`` is carried: the port runs its data axis (``parallel/``).
 """
 from __future__ import annotations
 
@@ -73,6 +73,11 @@ class ModelConfig:
     # MS-GCNet: "all" (conv3dbn_2 and the block entry convs) or "stem"
     # (conv3dbn_2 only)
     quant_scope: str = "all"
+    # MS-PSMNet: the JAX model keeps its eval outer graph in the packed
+    # layout (True) or unpacks it (False); with quant_eval, False turns
+    # dres3's and dres4's conv1 into full-layout convs that run int8 only
+    # past the stride-2 gate. The float outputs do not depend on it.
+    packed_eval_outer: bool = True
 
 
 @dataclasses.dataclass(frozen=True)
@@ -197,13 +202,6 @@ class Config:
         fields the port does not carry are skipped."""
         d = json.loads(s)
         model = d.get("model", {})
-        # JAX's MS-PSMNet packed_eval_outer=False moves the hourglasses of
-        # dres3 and dres4 to the full layout, where other convs run int8
-        if (model.get("quant_eval")
-                and not model.get("packed_eval_outer", True)):
-            raise ValueError(
-                "packed_eval_outer=False with quant_eval: the port quantizes "
-                "the convs of the JAX default packed_eval_outer=True only")
         return Config(
             matching=MatchingConfig(**_known(MatchingConfig, d.get("matching", {}))),
             model=ModelConfig(**_known(ModelConfig, model)),

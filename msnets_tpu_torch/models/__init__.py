@@ -56,7 +56,8 @@ def build_model(model_cfg: ModelConfig, device: DeviceLike = None,
         model = MSPSMNet(model_cfg.max_disp, model_cfg.in_channels,
                          model_cfg.base_filters,
                          4 if model_cfg.quarter_input else 2, generator,
-                         compute_dtype(model_cfg), remat, remat_scope, *q)
+                         compute_dtype(model_cfg), remat, remat_scope, *q,
+                         model_cfg.packed_eval_outer)
     else:
         model = MSGCNet(model_cfg.max_disp, model_cfg.in_channels,
                         model_cfg.base_filters, generator,
@@ -77,6 +78,9 @@ def quant_convs(model_name: str, model_cfg: ModelConfig,
     ``volume_shape`` (``[N, C, D, H, W]``, or its last three dims), whether
     it runs int8 in eval: ``{quant_stats path: bool}`` (``quant.coverage``
     of the model's ``quant_sites``; ``model_cfg.quant_scope`` applies to
-    MS-GCNet)."""
-    return coverage(_model_class(model_name).quant_sites(
-        model_cfg.quant_scope), volume_shape)
+    MS-GCNet, ``model_cfg.packed_eval_outer`` to MS-PSMNet)."""
+    if _model_class(model_name) is MSPSMNet:
+        sites = MSPSMNet.quant_sites(model_cfg.packed_eval_outer)
+    else:
+        sites = MSGCNet.quant_sites(model_cfg.quant_scope)
+    return coverage(sites, volume_shape)

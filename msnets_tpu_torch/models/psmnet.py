@@ -107,16 +107,19 @@ class MSPSMNet(nn.Module):
     FLOAT32_CHILDREN: Tuple[str, ...] = ()
 
     @staticmethod
-    def quant_sites(quant_scope: str = "all") -> Tuple[QuantSite, ...]:
+    def quant_sites(packed_eval_outer: bool = True) -> Tuple[QuantSite, ...]:
         """The convs JAX's model flags ``quant`` (``psmnet.py:45-68,
-        149-237``): it packs on an even H and W with no D condition;
-        ``dres0_2``, ``dres1_1`` and ``dres1_2`` are flagged either way,
-        each hourglass's ``conv1`` reads the packed layout (JAX's default
-        ``packed_eval_outer=True``). ``quant_scope`` is MS-GCNet's."""
+        149-241``): it packs on an even H and W with no D condition;
+        ``dres0_2``, ``dres1_1`` and ``dres1_2`` are flagged either way.
+        ``dres2.conv1`` reads the packed std volume; ``dres3.conv1`` and
+        ``dres4.conv1`` read the packed outer graph with
+        ``packed_eval_outer`` (JAX's default) and the full layout without
+        it, where only the stride-2 gate makes them int8."""
         sites = [QuantSite(p, "packed") for p in ("dres0_2", "dres1_1",
                                                   "dres1_2")]
         for h in ("dres2", "dres3", "dres4"):
-            sites += [QuantSite(f"{h}.conv1", "entry"),
+            entry = "entry" if h == "dres2" or packed_eval_outer else "gate"
+            sites += [QuantSite(f"{h}.conv1", entry),
                       QuantSite(f"{h}.conv3", "gate", 1)]
         return tuple(sites)
 
@@ -125,7 +128,8 @@ class MSPSMNet(nn.Module):
                  generator: Optional[torch.Generator] = None,
                  compute_dtype: torch.dtype = torch.float32,
                  remat: bool = False, remat_scope: str = "all",
-                 quant_eval: bool = False, quant_mode: str = "dynamic"):
+                 quant_eval: bool = False, quant_mode: str = "dynamic",
+                 packed_eval_outer: bool = True):
         super().__init__()
         if remat_scope not in REMAT_SCOPES:
             raise ValueError(f"remat_scope={remat_scope!r}, expected one of "
@@ -135,8 +139,8 @@ class MSPSMNet(nn.Module):
         self.upscale = upscale
         self.compute_dtype = compute_dtype
         self.remat_outer = remat and remat_scope == "all"
-        q = {s.path: (s, quant_mode)
-             for s in self.quant_sites()} if quant_eval else {}
+        sites = self.quant_sites(packed_eval_outer)
+        q = {s.path: (s, quant_mode) for s in sites} if quant_eval else {}
         self.dres0 = nn.Sequential(ConvBN3D(in_channels, Fn), nn.ReLU(),
                                    ConvBN3D(Fn, Fn, 1, *q.get("dres0_2", ())),
                                    nn.ReLU())

@@ -10,8 +10,11 @@ float32 kernel ``kf`` and bias ``b``::
     acc = int8 conv3d(xq, kq)             # exact int32 sums
     y = (float32(acc) * (sx * sk)).to(dtype) + b.to(dtype)
 
-in that order, as the JAX lowerings do. The int32 sums are the kernel of
-``ops/cuda/int8_conv3d.py`` on the card, and its plain version on the CPU.
+in that order, as the JAX lowerings do. It runs as two kernels on the card:
+``ops/cuda/int8_quantize.py`` writes ``xq`` channels last, and
+``ops/cuda/int8_conv3d.py``'s ``int8_conv3d_dequant`` sums on the int8
+tensor cores and writes ``y``; the dynamic scale's max-abs pass is one
+``torch.aminmax``. On the CPU both kernels take their plain versions.
 
 **Which convs run int8.** The JAX models flag some convs ``quant`` and a
 flagged conv runs int8 only in its TPU layouts: (a) a stride-1 conv that
@@ -52,7 +55,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..ops.cuda.int8_conv3d import int8_conv3d
+from ..ops.cuda.int8_conv3d import int8_conv3d_dequant, pack_weights
+from ..ops.cuda.int8_quantize import int8_quantize, quantize_values
 from ..ops.matchers import _div_const
 from ..parallel import halo
 from ..parallel import mesh as pm
@@ -64,11 +68,23 @@ S2D_MIN_VOXELS = 1_000_000
 _EPS = 1e-12
 
 
+def sample_absmax(x: torch.Tensor) -> torch.Tensor:
+    """Each sample's max-abs in float32, shape ``[N, 1, ...]``: ``max(-min,
+    max)`` of one ``aminmax`` pass in x's dtype, equal to
+    ``x.float().abs().amax(every dim but the first)`` bit for bit
+    (negation and widening to float32 are exact; ``abs`` makes a zero
+    positive)."""
+    lo, hi = torch.aminmax(x.reshape(x.shape[0], -1), dim=1)
+    amax = torch.maximum(-lo.float(), hi.float()).abs()
+    return amax.view((-1,) + (1,) * (x.dim() - 1))
+
+
 def activation_scale(x: torch.Tensor, group=None) -> torch.Tensor:
     """The dynamic scale of ``x``: each sample's ``max(amax over every dim
     but the first, 1e-12) / 127`` in float32, shape ``[N, 1, ...]``, its
-    amax taken over ``group`` too when the sample is split over ranks."""
-    amax = x.float().abs().amax(dim=tuple(range(1, x.dim())), keepdim=True)
+    amax (``sample_absmax``) taken over ``group`` too when the sample is
+    split over ranks."""
+    amax = sample_absmax(x)
     pm.all_reduce_max(amax, group)
     return _div_const(amax.clamp_min(_EPS), 127.0)
 
@@ -80,8 +96,7 @@ def quantize_activation(x: torch.Tensor, scale: Optional[torch.Tensor] = None
     ``scale=None`` is the dynamic mode (``activation_scale``)."""
     if scale is None:
         scale = activation_scale(x)
-    xq = torch.round(x.float() / scale).clamp_(-127, 127).to(torch.int8)
-    return xq, scale
+    return quantize_values(x, scale), scale
 
 
 def quantize_kernel(kf: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -198,11 +213,12 @@ class QuantConv3d(nn.Module):
                 f"mode={self.mode!r}")
 
     def quantized_kernel(self) -> Tuple[torch.Tensor, torch.Tensor]:
-        """``quantize_kernel(weight)`` in the int8 conv's channels-last
-        layout ``[Cout, 3, 3, 3, Cin]``, and the scale; made once."""
+        """``quantize_kernel(weight)`` in the int8 conv kernel's layout
+        (``pack_weights`` of the channels-last ``[Cout, 3, 3, 3, Cin]``),
+        and the scale; made once."""
         if self._kernel is None or self._kernel[0].device != self.weight.device:
             kq, sk = quantize_kernel(self.weight)
-            self._kernel = kq.permute(0, 2, 3, 4, 1).contiguous(), sk
+            self._kernel = pack_weights(kq.permute(0, 2, 3, 4, 1)), sk
         return self._kernel
 
     def _plain(self, x):
@@ -232,7 +248,7 @@ class QuantConv3d(nn.Module):
         if self.mode == "calib":
             if self.site.flagged(dhw):
                 t = x.local if sharded else x
-                amax = t.detach().float().abs().amax().reshape(1)
+                amax = sample_absmax(t.detach()).amax().reshape(1)
                 if sharded:
                     pm.all_reduce_max(amax, x.group)
                 self.act_amax.copy_(torch.maximum(self.act_amax, amax[0]))
@@ -241,35 +257,23 @@ class QuantConv3d(nn.Module):
             return self._plain(x)
         if not self.site.runs_int8(dhw):
             return self._plain(x)
-        scale = self._scale() if self.mode == "static" else None
-        kq, sk = self.quantized_kernel()
-        if not sharded:
-            xq, sx = quantize_activation(x, scale)
-            acc = int8_conv3d(_channels_last(xq), kq, self.stride, (1, 1, 1))
-            return _dequant(acc, sx, sk, self.bias, x.dtype)
-        if scale is None:
+        wp, sk = self.quantized_kernel()
+        if self.mode == "static":
+            scale = self._scale()
+        elif sharded:
             scale = activation_scale(x.local, _sample_group(x))
+        else:
+            scale = activation_scale(x)
+        if not sharded:
+            return int8_conv3d_dequant(int8_quantize(x, scale), wp, scale, sk,
+                                       self.bias, self.stride, (1, 1, 1),
+                                       x.dtype)
         t, _, pad, out_shape, rec = halo.conv3d_input(
             x, self.weight.shape[0], self.stride)
-        xq, sx = quantize_activation(t, scale)
-        acc = int8_conv3d(_channels_last(xq), kq, self.stride, pad)
+        y = int8_conv3d_dequant(int8_quantize(t, scale), wp, scale, sk,
+                                self.bias, self.stride, pad, x.dtype)
         rec["int8"] = self.site.path
-        return halo.finish(_dequant(acc, sx, sk, self.bias, x.dtype),
-                           out_shape, x, rec)
-
-
-def _channels_last(xq: torch.Tensor) -> torch.Tensor:
-    """``[N, C, D, H, W]`` -> contiguous ``[N, D, H, W, C]``."""
-    return xq.permute(0, 2, 3, 4, 1).contiguous()
-
-
-def _dequant(acc: torch.Tensor, sx: torch.Tensor, sk: torch.Tensor,
-             bias: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """``(float32(acc) * (sx * sk)).to(dtype) + bias.to(dtype)``, JAX's
-    order (the scale product first, the bias in the compute dtype)."""
-    c = (1, -1, 1, 1, 1)
-    y = (acc.float() * (sx * sk.view(c))).to(dtype)
-    return y + bias.to(dtype).view(c)
+        return halo.finish(y, out_shape, x, rec)
 
 
 # -- the model's quantized convs ---------------------------------------------

@@ -1,6 +1,7 @@
-"""The port on the GPU: the census and census_aml kernels against their plain
-PyTorch versions, and the feature stage, the server (8-channel, 16-channel
-and raw variants, ``predict`` and ``predict_stream``; MS-PSMNet), the train
+"""The port on the GPU: the census, census_aml, int8_quantize and
+int8_conv3d kernels against their plain PyTorch versions, and the feature
+stage, the server (8-channel, 16-channel and raw variants, ``predict`` and
+``predict_stream``; MS-PSMNet), the train
 step (MS-GCNet; MS-PSMNet with and without remat), the checkpoint round trip
 and the evaluator on the card against the same code on the CPU. Every
 test needs an NVIDIA GPU and skips without one; run them on the card with
@@ -477,6 +478,78 @@ def test_int8_conv3d_kernel_rejects_mixed_devices(cuda):
     wq = torch.zeros((8, 3, 3, 3, 8), dtype=torch.int8)
     with pytest.raises(ValueError):
         int8_conv3d(xq.to(cuda), wq, 1)
+
+
+INT8_FUSED_CASES = [    # x [N, C, D, H, W], cout, stride, padding
+    ((1, 32, 6, 8, 10), 32, 1, (1, 1, 1)),    # the stem's widths
+    ((1, 32, 6, 8, 10), 64, 2, (1, 1, 1)),    # block_3d_1's entry
+    ((1, 64, 5, 7, 9), 64, 2, (1, 1, 1)),     # a block entry, odd dims
+    ((2, 8, 5, 7, 9), 16, 1, (0, 1, 1)),      # a disp-split halo window
+    ((2, 4, 5, 7, 9), 8, 2, (1, 0, 1)),       # a spatial-split one
+    ((1, 8, 4, 1, 6), 16, 1, (1, 1, 1)),      # H = 1
+    ((1, 5, 4, 5, 6), 12, 1, (1, 1, 1)),      # cin 5
+    ((2, 32, 3, 4, 300), 40, 1, (1, 1, 1)),   # ragged third ow tile
+]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape,cout,stride,pad", INT8_FUSED_CASES)
+def test_int8_quantize_and_fused_conv_kernels_match_plain(cuda, shape, cout,
+                                                          stride, pad, dtype):
+    """int8_quantize and the fused int8_conv3d_dequant on the card equal
+    their plain versions on the CPU bit for bit, with per-sample and scalar
+    scales; each call launches its kernel once."""
+    from msnets_tpu_torch.ops.cuda.int8_conv3d import (
+        int8_conv3d, int8_conv3d_dequant, int8_conv3d_dequant_reference,
+        pack_weights)
+    from msnets_tpu_torch.ops.cuda.int8_quantize import (
+        int8_quantize, int8_quantize_reference)
+    rng = np.random.default_rng(sum(shape) + cout + stride)
+    tdt = getattr(torch, dtype)
+    x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)
+                         * 5.0).to(tdt)
+    wp = pack_weights(torch.from_numpy(rng.integers(
+        -127, 128, (cout, 3, 3, 3, shape[1]), dtype=np.int8)))
+    sk = torch.from_numpy(rng.uniform(1e-4, 1e-2, cout).astype(np.float32))
+    bias = torch.from_numpy(rng.standard_normal(cout).astype(np.float32))
+    for sx in (torch.from_numpy(rng.uniform(0.01, 0.1, shape[0]).astype(
+            np.float32)), torch.tensor(np.float32(0.03))):
+        q0, c0 = int8_quantize.launches, int8_conv3d.launches
+        xq = int8_quantize(x.to(cuda), sx.to(cuda))
+        got = int8_conv3d_dequant(xq, wp.to(cuda), sx.to(cuda), sk.to(cuda),
+                                  bias.to(cuda), stride, pad, tdt)
+        torch.cuda.synchronize()
+        assert (int8_quantize.launches - q0, int8_conv3d.launches - c0) == (
+            1, 1)
+        want_q = int8_quantize_reference(x, sx)
+        assert torch.equal(xq.cpu(), want_q)
+        want = int8_conv3d_dequant_reference(want_q, wp, sx, sk, bias,
+                                             stride, pad, tdt)
+        assert got.dtype == tdt and got.shape == want.shape
+        assert torch.equal(got.cpu(), want)
+
+
+def test_int8_quantize_and_fused_conv_reject_bad_inputs(cuda):
+    from msnets_tpu_torch.ops.cuda.int8_conv3d import (int8_conv3d_dequant,
+                                                       pack_weights)
+    from msnets_tpu_torch.ops.cuda.int8_quantize import int8_quantize
+    x = torch.zeros((1, 8, 4, 4, 4), device=cuda)
+    with pytest.raises(ValueError):
+        int8_quantize(x, torch.ones(1))                  # scale on the CPU
+    with pytest.raises(TypeError):
+        int8_quantize(x.half(), torch.ones(1, device=cuda))
+    xq = torch.zeros((1, 4, 4, 4, 32), dtype=torch.int8, device=cuda)
+    wp = pack_weights(torch.zeros((8, 3, 3, 3, 32), dtype=torch.int8))
+    one, ones = torch.ones(1, device=cuda), torch.ones(8, device=cuda)
+    with pytest.raises(ValueError):
+        int8_conv3d_dequant(xq, wp, one, ones, ones, 1, (1, 1, 1),
+                            torch.float32)               # wp on the CPU
+    with pytest.raises(TypeError):
+        int8_conv3d_dequant(xq, wp.to(cuda), one, ones.half(), ones, 1,
+                            (1, 1, 1), torch.float32)
+    with pytest.raises(TypeError):
+        int8_conv3d_dequant(xq.float(), wp.to(cuda), one, ones, ones, 1,
+                            (1, 1, 1), torch.float32)
 
 
 @pytest.mark.parametrize("model,mode,n_int8", [

@@ -35,6 +35,7 @@ PORT_MODULES = [
     "msnets_tpu_torch.utils.profiling", "msnets_tpu_torch.utils.debug_viz",
     "msnets_tpu_torch.models.basic_blocks", "msnets_tpu_torch.ops.sampling",
     "msnets_tpu_torch.models.quant", "msnets_tpu_torch.ops.cuda.int8_conv3d",
+    "msnets_tpu_torch.ops.cuda.int8_quantize",
 ]
 
 

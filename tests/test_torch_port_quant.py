@@ -1,10 +1,12 @@
 """The port's int8 eval building blocks (msnets_tpu_torch/models/quant.py,
-ops/cuda/int8_conv3d.py) against the JAX package's: the quantizers
-``_quant_act`` and ``_quant_kernels`` bit for bit, the quantized conv (its
-plain int32 conv on the CPU) against each quantized JAX lowering bit for
-bit, the coverage rule ``quant_convs`` against the layouts' table and the
-keys of JAX's calibration, and the int32 conv's plain version against a
-direct integer sum."""
+ops/cuda/int8_quantize.py, ops/cuda/int8_conv3d.py) against the JAX
+package's: the quantizers ``_quant_act`` and ``_quant_kernels`` bit for bit,
+the quantized conv (the plain versions of its kernels on the CPU) against
+each quantized JAX lowering bit for bit, the coverage rule ``quant_convs``
+against the layouts' table, the keys of JAX's calibration and the convs
+JAX quantizes, and the int32 conv's plain version against a direct integer
+sum; the plain versions of the fused kernels against the unfused passes
+they replace, bit for bit."""
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -21,10 +23,14 @@ from msnets_tpu_torch.config import ModelConfig
 from msnets_tpu_torch.models import build_model, quant_convs
 from msnets_tpu_torch.models.convert import quant_stats_from_jax
 from msnets_tpu_torch.models.quant import (QuantConv3d, QuantSite,
+                                           activation_scale,
                                            quantize_activation,
-                                           quantize_kernel)
-from msnets_tpu_torch.ops.cuda.int8_conv3d import (int8_conv3d,
-                                                   int8_conv3d_reference)
+                                           quantize_kernel, sample_absmax)
+from msnets_tpu_torch.ops.cuda.int8_conv3d import (
+    int8_conv3d, int8_conv3d_dequant, int8_conv3d_dequant_reference,
+    int8_conv3d_reference, pack_weights)
+from msnets_tpu_torch.ops.cuda.int8_quantize import (int8_quantize,
+                                                     int8_quantize_reference)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -446,3 +452,240 @@ def test_quant_convs_keys_match_jax_calibration(model, scope, dhw, stop_at):
     if stop_at == "dres1":
         got = [p for p in got if p.startswith(("dres0", "dres1"))]
     assert got == want
+
+
+# -- the fused kernels' plain versions against the unfused passes ------------
+
+def _unfused(x, wq, sk, bias, stride, pad, scale):
+    """The int8 conv as the unfused passes compute it: quantize_activation,
+    the channels-last copy, the int32 conv and the dequantization in JAX's
+    order, ``(float32(acc) * (sx * sk)).to(dtype) + bias.to(dtype)``."""
+    xq, sx = quantize_activation(x, scale)
+    acc = int8_conv3d(xq.permute(0, 2, 3, 4, 1).contiguous(), wq, stride, pad)
+    c = (1, -1, 1, 1, 1)
+    y = (acc.float() * (sx * sk.view(c))).to(x.dtype)
+    return xq, y + bias.to(x.dtype).view(c)
+
+
+def _fused_operands(rng, n, cin, cout, dhw, dtype):
+    x = rng.standard_normal((n, cin) + dhw).astype(np.float32) * 4.0
+    x[-1] *= 30.0                     # samples of unequal scale
+    xt = torch.from_numpy(x).to(dtype)
+    wq = torch.from_numpy(rng.integers(-127, 128, (cout, 3, 3, 3, cin),
+                                       dtype=np.int8))
+    sk = torch.from_numpy(rng.uniform(1e-4, 1e-2, cout).astype(np.float32))
+    bias = torch.from_numpy(rng.standard_normal(cout).astype(np.float32))
+    return xt, wq, sk, bias
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("scale", ["sample", "scalar"])
+@pytest.mark.parametrize("cin", [4, 5, 8, 64])
+def test_int8_quantize_plain_version_matches_the_unfused_passes(dtype, scale,
+                                                                cin):
+    """int8_quantize (its plain version on the CPU) equals
+    quantize_activation, moved channels last and zero-padded to 32 or 64
+    channels, bit for bit: per-sample (dynamic) and scalar (static)
+    scales, values past the calibrated range saturating."""
+    rng = np.random.default_rng(cin + (dtype == "float32"))
+    tdt = getattr(torch, dtype)
+    x, _, _, _ = _fused_operands(rng, 2, cin, 4, (3, 5, 7), tdt)
+    s = (activation_scale(x) if scale == "sample" else
+         torch.tensor(np.float32(np.abs(x.float().numpy()).max() / 300)))
+    got = int8_quantize(x, s)
+    want = quantize_activation(x, s)[0].permute(0, 2, 3, 4, 1)
+    assert got.dtype == torch.int8 and got.is_contiguous()
+    assert got.shape == (2, 3, 5, 7, 64 if cin == 64 else 32)
+    assert torch.equal(got[..., :cin], want)
+    assert not got[..., cin:].any()
+    if scale == "scalar":
+        assert int(want.abs().max()) == 127       # saturated
+    np.testing.assert_array_equal(int8_quantize_reference(x, s).numpy(),
+                                  got.numpy())
+    assert int8_quantize.launches == 0            # no kernel on the CPU
+
+
+@pytest.mark.parametrize("stride", [1, 2])
+@pytest.mark.parametrize("pad", [(1, 1, 1), (0, 1, 1), (1, 0, 1)])
+@pytest.mark.parametrize("cin", [4, 5, 8, 64])
+def test_fused_int8_conv_plain_version_matches_the_unfused_passes(
+        stride, pad, cin):
+    """int8_quantize and int8_conv3d_dequant (their plain versions on the
+    CPU) equal the unfused passes bit for bit, in float32 and bfloat16,
+    with per-sample and scalar scales, at per-dim padding, odd dims, N = 2
+    and output channels that are no multiple of 32."""
+    rng = np.random.default_rng(1000 + 10 * cin + stride + 3 * pad[0])
+    cout = {4: 12, 5: 8, 8: 40, 64: 64}[cin]
+    for dtype in (torch.float32, torch.bfloat16):
+        x, wq, sk, bias = _fused_operands(rng, 2, cin, cout, (5, 7, 9), dtype)
+        for scale in (None, torch.tensor(np.float32(0.05))):
+            want_q, want = _unfused(x, wq, sk, bias, stride, pad, scale)
+            sx = activation_scale(x) if scale is None else scale
+            xq = int8_quantize(x, sx)
+            got = int8_conv3d_dequant(xq, pack_weights(wq), sx, sk, bias,
+                                      stride, pad, dtype)
+            assert got.dtype == dtype and got.shape == want.shape
+            assert torch.equal(xq[..., :cin],
+                               want_q.permute(0, 2, 3, 4, 1))
+            np.testing.assert_array_equal(got.float().numpy(),
+                                          want.float().numpy())
+            np.testing.assert_array_equal(
+                int8_conv3d_dequant_reference(xq, pack_weights(wq), sx, sk,
+                                              bias, stride, pad,
+                                              dtype).float().numpy(),
+                got.float().numpy())
+    assert int8_conv3d.launches == 0
+
+
+def test_pack_weights_layout():
+    """pack_weights: [Cout_pad, 27, Cp], the taps in (kd, kh, kw) order,
+    the channels zero-padded to 32, 64 or 128 and the output channels to a
+    multiple of 32 (<= 32 of them) or 64."""
+    rng = np.random.default_rng(7)
+    for cout, cin, shape in ((12, 5, (32, 27, 32)), (40, 8, (64, 27, 32)),
+                             (64, 64, (64, 27, 64)), (100, 33, (128, 27, 64)),
+                             (40, 65, (64, 27, 128))):
+        wq = torch.from_numpy(rng.integers(-127, 128, (cout, 3, 3, 3, cin),
+                                           dtype=np.int8))
+        wp = pack_weights(wq)
+        assert tuple(wp.shape) == shape and wp.is_contiguous()
+        assert torch.equal(wp[:cout, :, :cin], wq.reshape(cout, 27, cin))
+        assert not wp[cout:].any() and not wp[:, :, cin:].any()
+
+
+def test_fused_int8_conv_checks_its_inputs():
+    x = torch.zeros((1, 4, 4, 4, 32), dtype=torch.int8)
+    wp = pack_weights(torch.zeros((8, 3, 3, 3, 32), dtype=torch.int8))
+    sx, sk, b = torch.ones(1), torch.ones(8), torch.zeros(8)
+    args = (1, (1, 1, 1), torch.float32)
+    with pytest.raises(TypeError, match="xq"):
+        int8_conv3d_dequant(x.float(), wp, sx, sk, b, *args)
+    with pytest.raises(ValueError, match="channels padded"):
+        int8_conv3d_dequant(x[..., :8].contiguous(), wp, sx, sk, b, *args)
+    with pytest.raises(TypeError, match="sk"):
+        int8_conv3d_dequant(x, wp, sx, sk.double(), b, *args)
+    with pytest.raises(ValueError, match="sx"):
+        int8_conv3d_dequant(x, wp, torch.ones(3), sk, b, *args)
+    with pytest.raises(TypeError, match="dtype"):
+        int8_conv3d_dequant(x, wp, sx, sk, b, 1, (1, 1, 1), torch.float16)
+    with pytest.raises(ValueError, match="at most 128"):
+        int8_conv3d(torch.zeros((1, 4, 4, 4, 129), dtype=torch.int8),
+                    torch.zeros((8, 3, 3, 3, 129), dtype=torch.int8), 1)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        int8_quantize(torch.zeros((1, 2, 3, 3, 3), dtype=torch.float16),
+                      torch.ones(1))
+    with pytest.raises(ValueError, match="samples"):
+        int8_quantize(torch.zeros((2, 2, 3, 3, 3)), torch.ones(3))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_sample_absmax_is_exact(dtype):
+    """The one-pass aminmax absmax equals x.float().abs().amax() bit for
+    bit: samples dominated by a negative value, by a positive one, an
+    all-zero sample (a positive zero) and a sample of negative zeros."""
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.standard_normal((5, 3, 4, 5, 6)).astype(
+        np.float32) * 7.0).to(getattr(torch, dtype))
+    x[0, 1, 2, 3, 4] = -1e4
+    x[1, 0, 0, 0, 0] = 3e4
+    x[2] = 0.0
+    x[3] = -0.0
+    got = sample_absmax(x)
+    want = x.float().abs().amax(dim=(1, 2, 3, 4), keepdim=True)
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    np.testing.assert_array_equal(got.numpy().view(np.int32),
+                                  want.numpy().view(np.int32))
+
+
+# -- packed_eval_outer ---------------------------------------------------------
+
+def _jax_int8_and_calib_keys(outer, dhw, stop_at):
+    """JAX's MS-PSMNet at ``packed_eval_outer=outer``, traced (no compute)
+    at a volume of ``dhw``: the paths of the convs whose dynamic eval calls
+    ``_quant_act`` (the convs that run int8), and the keys of its "calib"
+    forward's quant_stats."""
+    import msnets_tpu.models.layers as jl
+    from flax import linen as fnn
+    kw = dict(max_disp=2 * dhw[0], base_filters=4, dtype=jnp.float32,
+              quant_eval=True, packed_eval_outer=outer)
+    x = jax.ShapeDtypeStruct((1,) + dhw + (8,), jnp.float32)
+    v = jax.eval_shape(JaxMSPSMNet(**kw).init, jax.random.PRNGKey(0), x)
+    stack, int8 = [], set()
+
+    def capture(next_fun, args, kwargs, ctx):
+        if isinstance(ctx.module, jl.ConvBN3D) and ctx.method_name == "__call__":
+            stack.append(".".join(ctx.module.scope.path))
+            try:
+                return next_fun(*args, **kwargs)
+            finally:
+                stack.pop()
+        return next_fun(*args, **kwargs)
+
+    quant_act = jl._quant_act
+
+    def recording(x, scale=None):
+        int8.add(stack[-1])
+        return quant_act(x, scale)
+
+    jl._quant_act = recording
+    try:
+        with fnn.intercept_methods(capture):
+            jax.eval_shape(lambda v, x: JaxMSPSMNet(**kw).apply(
+                v, x, train=False, stop_at=stop_at), v, x)
+    finally:
+        jl._quant_act = quant_act
+    _, qs = jax.eval_shape(lambda v, x: JaxMSPSMNet(
+        **dict(kw, quant_mode="calib")).apply(
+            v, x, train=False, stop_at=stop_at, mutable=["quant_stats"]),
+        v, x)
+    keys = sorted(".".join(k.key for k in path[:-1]) for path, _ in
+                  jax.tree_util.tree_flatten_with_path(qs["quant_stats"])[0])
+    return sorted(int8), keys
+
+
+@pytest.mark.parametrize("outer", [True, False], ids=["packed", "full"])
+@pytest.mark.parametrize("dhw", [(8, 16, 32), (64, 128, 128)],
+                         ids=["under_gate", "over_gate"])
+def test_psmnet_packed_eval_outer_matches_jax(outer, dhw):
+    """MS-PSMNet's quant_convs at packed_eval_outer True and False against
+    JAX's own model, traced: the keys of its calibration and the convs
+    that call _quant_act. Under the stride-2 gate (8x16x32) the full-layout
+    dres3.conv1 and dres4.conv1 of packed_eval_outer=False compute in
+    float; over it (64x128x128 = 1,048,576 voxels, even) they run int8
+    either way; dres2.conv1 reads the packed volume in both."""
+    int8, keys = _jax_int8_and_calib_keys(outer, dhw, "hg3")
+    cfg = ModelConfig(name="MS-PSMNet", quant_eval=True,
+                      packed_eval_outer=outer)
+    got = quant_convs("MS-PSMNet", cfg, dhw)
+    assert sorted(got) == keys == sorted(PSMNET_ALL)
+    assert sorted(p for p, v in got.items() if v) == int8
+    moved = {"dres3.conv1", "dres4.conv1"}
+    assert moved <= set(int8) if outer or dhw[0] == 64 else not (
+        moved & set(int8))
+    assert "dres2.conv1" in int8
+
+
+def test_psmnet_float_output_does_not_depend_on_packed_eval_outer():
+    """Without quant_eval the flag moves only the JAX model's layouts: the
+    port's MS-PSMNet gives the same output either way, and its int8 model
+    quantizes dres3.conv1 only where quant_convs says."""
+    rng = np.random.default_rng(9)
+    cv = torch.from_numpy(rng.random((1, 8, 8, 16, 32), dtype=np.float32))
+    outs = []
+    for outer in (True, False):
+        cfg = ModelConfig(name="MS-PSMNet", max_disp=16, base_filters=4,
+                          compute_dtype="float32", packed_eval_outer=outer)
+        m = build_model(cfg, "cpu", torch.Generator().manual_seed(0))
+        with torch.no_grad():
+            outs.append(m(cv))
+    assert torch.equal(outs[0], outs[1])
+    for outer in (True, False):
+        cfg = ModelConfig(name="MS-PSMNet", max_disp=16, base_filters=4,
+                          compute_dtype="float32", quant_eval=True,
+                          packed_eval_outer=outer)
+        m = build_model(cfg, "cpu")
+        kinds = {name: c.quant.kind for name, c in m.named_modules()
+                 if getattr(c, "quant", None) is not None}
+        assert kinds["dres2.conv1.0"] == "entry"
+        assert kinds["dres3.conv1.0"] == ("entry" if outer else "gate")
+        assert kinds["dres4.conv1.0"] == ("entry" if outer else "gate")

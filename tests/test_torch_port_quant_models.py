@@ -33,7 +33,12 @@ MAX_DISP, F = 32, 8
 VOLUME = (1, 8, 16, 16, 32)
 # name -> (model, quant_scope)
 MODELS = {"gcnet-all": ("MS-GCNet", "all"), "gcnet-stem": ("MS-GCNet", "stem"),
-          "psmnet": ("MS-PSMNet", "all")}
+          "psmnet": ("MS-PSMNet", "all"),
+          "psmnet-full-outer": ("MS-PSMNet", "all")}
+# MS-PSMNet's packed_eval_outer by name (JAX's default True elsewhere): at
+# False dres3's and dres4's conv1 read the full layout, below the stride-2
+# gate at VOLUME, and compute in float
+OUTER = {"psmnet-full-outer": False}
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -77,13 +82,13 @@ def _port(cfg, sd):
     return fold_batchnorm(m)
 
 
-def _jax_model(model, scope, mode=None):
+def _jax_model(model, scope, mode=None, outer=True):
     kw = dict(max_disp=MAX_DISP, dtype=jnp.float32)
     if mode is not None:
         kw.update(quant_eval=True, quant_mode=mode)
     if model == "MS-GCNet":
         return JaxMSGCNet(num_filters=F, quant_scope=scope, **kw)
-    return JaxMSPSMNet(base_filters=F, **kw)
+    return JaxMSPSMNet(base_filters=F, packed_eval_outer=outer, **kw)
 
 
 def _to_full(x, layout):
@@ -95,10 +100,10 @@ def _to_full(x, layout):
     return x
 
 
-def _jax_run(model, scope, mode, variables, cv):
+def _jax_run(model, scope, mode, variables, cv, outer=True):
     """The JAX model's disparity and, for each int8 conv, the int8 values
     JAX quantizes its input to (full layout, NDHWC)."""
-    jm = _jax_model(model, scope, mode)
+    jm = _jax_model(model, scope, mode, outer)
     seen = []
 
     def fn(v, f):
@@ -131,10 +136,10 @@ def _jax_run(model, scope, mode, variables, cv):
     return np.asarray(out), xq
 
 
-def _port_run(model, sd, scope, mode, cv, stats=None):
+def _port_run(model, sd, scope, mode, cv, stats=None, outer=True):
     """The port's folded model's disparity and the int8 values of each
     int8 conv's input (NDHWC)."""
-    m = _port(_cfg(model, scope, mode), sd)
+    m = _port(_cfg(model, scope, mode, packed_eval_outer=outer), sd)
     if stats is not None:
         Q.load_quant_stats(m, stats)
     xq, hooks = {}, []
@@ -158,28 +163,31 @@ def runs():
     cvj = jnp.asarray(np.moveaxis(cv, 1, -1))
     out = {}
     for name, (model, scope) in MODELS.items():
+        outer = OUTER.get(name, True)
         sd = _state_dict(model)
         v = convert_state_dict(sd, model)
         r = {"sd": sd, "cv": cv}
         r["jax_f32"] = np.asarray(jax.jit(lambda v, f: _jax_model(
-            model, scope).apply(v, f, train=False))(v, cvj))
+            model, scope, outer=outer).apply(v, f, train=False))(v, cvj))
         r["jax_dynamic"], r["jax_xq_dynamic"] = _jax_run(
-            model, scope, "dynamic", v, cvj)
-        _, qs = jax.jit(lambda v, f: _jax_model(model, scope, "calib").apply(
+            model, scope, "dynamic", v, cvj, outer)
+        _, qs = jax.jit(lambda v, f: _jax_model(
+            model, scope, "calib", outer).apply(
             v, f, train=False, mutable=["quant_stats"]))(v, cvj)
         r["jax_stats"] = quant_stats_from_jax(qs)
         r["jax_static"], r["jax_xq_static"] = _jax_run(
-            model, scope, "static", dict(v, **qs), cvj)
+            model, scope, "static", dict(v, **qs), cvj, outer)
         r["port_dynamic"], r["port_xq_dynamic"], _ = _port_run(
-            model, sd, scope, "dynamic", cv)
-        calib = _port(_cfg(model, scope, "calib"), sd)
+            model, sd, scope, "dynamic", cv, outer=outer)
+        calib = _port(_cfg(model, scope, "calib",
+                           packed_eval_outer=outer), sd)
         with torch.no_grad():
             calib(torch.from_numpy(cv))
         r["port_stats"] = Q.quant_stats(calib, recorded=True)
         r["port_static_jax_stats"], r["port_xq_static"], _ = _port_run(
-            model, sd, scope, "static", cv, r["jax_stats"])
+            model, sd, scope, "static", cv, r["jax_stats"], outer)
         r["port_static"], r["port_xq_own"], _ = _port_run(
-            model, sd, scope, "static", cv, r["port_stats"])
+            model, sd, scope, "static", cv, r["port_stats"], outer)
         out[name] = r
     return out
 
@@ -192,7 +200,8 @@ def _flips(name, port_xq, jax_xq):
     """(values that differ, values, the largest difference in steps) over
     the convs that run int8; JAX captures every flagged conv's input."""
     model, scope = MODELS[name]
-    int8 = quant_convs(model, _cfg(model, scope), VOLUME)
+    int8 = quant_convs(model, _cfg(model, scope, packed_eval_outer=OUTER.get(
+        name, True)), VOLUME)
     assert sorted(port_xq) == sorted(p for p, v in int8.items() if v)
     assert set(port_xq) <= set(jax_xq)
     n = sum(int((port_xq[p] != jax_xq[p]).sum()) for p in port_xq)
@@ -275,7 +284,8 @@ def test_jax_calibration_through_the_bridge(runs, name):
         node["act_amax"] = jnp.float32(v)
     stats = quant_stats_from_jax({"quant_stats": tree})
     assert stats == r["port_stats"]
-    out, _, _ = _port_run(model, r["sd"], scope, "static", r["cv"], stats)
+    out, _, _ = _port_run(model, r["sd"], scope, "static", r["cv"], stats,
+                          OUTER.get(name, True))
     np.testing.assert_array_equal(out, r["port_static"])
 
 

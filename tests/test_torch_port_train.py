@@ -331,14 +331,15 @@ def test_config_json_round_trip_and_jax_json():
     assert (got.model.max_disp, got.model.quant_eval, got.model.quant_mode,
             got.model.quant_scope, got.train.batch_size,
             got.mode) == (64, True, "static", "stem", 4, "loop-train")
-    # a layout knob the port does not carry is dropped, except where it
-    # would change which convs run int8
+    # a layout knob the port does not carry is dropped; packed_eval_outer,
+    # which changes which convs run int8, is carried with quant_eval or not
     off = JaxConfig(model=JaxModelConfig(quant_eval=True,
                                          packed_eval_outer=False))
-    with pytest.raises(ValueError, match="packed_eval_outer"):
-        Config.from_json(off.to_json())
+    assert Config.from_json(off.to_json()).model == ModelConfig(
+        quant_eval=True, packed_eval_outer=False)
     assert Config.from_json(JaxConfig(model=JaxModelConfig(
-        packed_eval_outer=False)).to_json()).model == ModelConfig()
+        packed_eval_outer=False, mid_deconv_mode="conv_shuffle")).to_json()
+    ).model == ModelConfig(packed_eval_outer=False)
 
 
 def test_trainer_config_checks():
