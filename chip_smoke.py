@@ -9,8 +9,10 @@ Phases, each of which fails the run on error:
   1. device     the card's name, power limit and maximum SM clock
                 (nvidia-smi);
   2. build      nvcc builds every kernel of msnets_tpu_torch/csrc/ (census,
-                census_aml, int8_conv3d, int8_quantize), and the census
-                kernels again with -DMSN_PHASES=1 for phase 9, all at once;
+                census_aml, int8_conv3d, and int8_quantize.cu's int8_quantize
+                and int8_absmax), the census kernels again with
+                -DMSN_PHASES=1 for phase 9 and int8_quantize.cu with each
+                -DMSN_QUANT_ABLATE for phase 20, all at once;
   3. kernel     census_aml against its plain PyTorch version (cost exact, AML
                 atol 1e-6) and census against its plain version (exact), at
                 the serving and training paths' shapes and at the tiling's
@@ -170,8 +172,9 @@ Phases, each of which fails the run on error:
                 (cuobjdump): int8 tensor-core instructions, no IDP; the
                 int8_conv3d kernel, raw (int32) and fused (its
                 dequantization in bf16 and float32, per-sample and scalar
-                scales), and the int8_quantize kernel against their plain
-                versions (on the host), bit for bit, at edge shapes
+                scales), and the int8_quantize and int8_absmax kernels
+                against their plain versions (on the host), bit for bit,
+                at edge shapes
                 (stride 1 and 2, per-dim padding, cin 4, 5, 8, 32, 64 and
                 128, cout 8 to 64, odd D, H and W, N = 2, H = 1, a ragged
                 third ow tile) and at the production convs' full H x W and
@@ -180,15 +183,20 @@ Phases, each of which fails the run on error:
                 256x512 and at 375x1242, block_3d_2's entry at 375x1242;
                 MS-PSMNet's convs share these shapes): bit for bit against
                 the plain versions on the card, the profiler's times (fused
-                and raw; median of three sessions), the bounds, the plain
-                versions' times, a bf16 F.conv3d yardstick and the dynamic
-                scale's aminmax pass; (b) StereoServer at Config() widths
+                and raw; median of three sessions; int8_quantize,
+                int8_absmax and the aminmax pass, its library call, in one
+                session), the bounds, the plain versions' times, a bf16
+                F.conv3d yardstick and int8_quantize's ablations (loads
+                only, no stores, the true division for every value), also
+                on the input after a ReLU (half zeros, as the int8 convs
+                get it); (b) StereoServer at Config() widths
                 (F=32, max_disp 192, bf16), seeded random weights, MS-GCNet
                 scope "all" dynamic, scope "stem" dynamic, "all" static
                 (calibrated by a "calib" server on one frame of each
                 bucket) and MS-PSMNet dynamic: 3 requests at 256x512 and
                 one at 375x1242, int8_conv3d and int8_quantize 2/3, 1/1,
-                2/3 and 6/9 times a request and census_aml once; the mean
+                2/3 and 6/9 times a request (int8_absmax as often, but
+                never in the static server) and census_aml once; the mean
                 and p99 |d disparity| against the float32 server (TF32 off)
                 under phase 6's 1 px; ms/pair beside the bf16 server's;
                 then one MS-PSMNet packed_eval_outer=False request at
@@ -196,8 +204,8 @@ Phases, each of which fails the run on error:
                 the packed_eval_outer=True server under 1 px;
                 (c) the CLI's --mode test --quant_eval 1 --quant_mode
                 static on phase 15's grey tree: finite scores, one
-                calibration forward, int8_conv3d and int8_quantize 3 times
-                a frame.
+                calibration forward (int8_absmax once a flagged conv: 5),
+                int8_conv3d and int8_quantize 3 times a frame.
 Then a {"kernels": [...]} line, and as the last line
 {"ok": true, "device": {...}}. Without CUDA, or without the
 package beside this file, it exits non-zero and prints no result.
@@ -273,6 +281,22 @@ def cuda_time_ms(fn, n: int) -> float:
     return start.elapsed_time(end) / n
 
 
+def queued_ms(fn, n: int) -> float:
+    """Mean device ms per call of ``fn`` over ``n`` calls from CUDA events,
+    the calls queued behind a sleep kernel (about 10 ms) so that the
+    host's launch time stays out of the reading."""
+    import torch
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    torch.cuda._sleep(20_000_000)
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / n
+
+
 def device_kernels_ms(fn, n: int) -> dict:
     """Device time of ``n`` calls of ``fn`` by kernel name, from
     torch.profiler: {name: (ms per recorded launch, launches recorded)}."""
@@ -323,14 +347,15 @@ def phase_device(state):
 
 
 def phase_build(state):
-    """Every kernel of csrc/, and the census kernels again with
-    -DMSN_PHASES=1 for the "phases" phase: one nvcc per library, all
-    started together."""
+    """Every kernel of csrc/, the census kernels again with -DMSN_PHASES=1
+    for the "phases" phase, and int8_quantize's ablations for phase 20:
+    one nvcc per library, all started together."""
     from concurrent.futures import ThreadPoolExecutor
     from msnets_tpu_torch.ops.cuda import _build
     t0 = time.perf_counter()
-    builds = ((None, ()), (("census", "census_aml"), PHASE_DEFINES))
-    with ThreadPoolExecutor(2) as pool:
+    builds = ((None, ()), (("census", "census_aml"), PHASE_DEFINES)) + tuple(
+        (("int8_quantize",), d) for d in QUANT_ABLATIONS.values())
+    with ThreadPoolExecutor(len(builds)) as pool:
         jobs = [pool.submit(_build.build, n, d) for n, d in builds]
         built = [(name + "".join(f" -D{x}" for x in d), info)
                  for (_, d), job in zip(builds, jobs)
@@ -396,6 +421,11 @@ def phase_kernel(state):
 
 
 PHASE_DEFINES = ("MSN_PHASES=1",)
+# int8_quantize built with one stage of its work taken out
+# (csrc/int8_quantize.cu's MSN_QUANT_ABLATE), timed beside the kernel
+QUANT_ABLATIONS = {"loads only": ("MSN_QUANT_ABLATE=1",),
+                   "no stores": ("MSN_QUANT_ABLATE=2",),
+                   "true division": ("MSN_QUANT_ABLATE=3",)}
 PHASES = {"census": ("staged", "built", "written"),
           "census_aml": ("staged", "built", "pass 1", "sum", "written")}
 
@@ -556,20 +586,25 @@ def _counted():
     from msnets_tpu_torch.ops.cuda.census import census
     from msnets_tpu_torch.ops.cuda.census_aml import census_aml
     from msnets_tpu_torch.ops.cuda.int8_conv3d import int8_conv3d
-    from msnets_tpu_torch.ops.cuda.int8_quantize import int8_quantize
+    from msnets_tpu_torch.ops.cuda.int8_quantize import (int8_absmax,
+                                                         int8_quantize)
     return {"census_aml": census_aml, "census": census,
-            "int8_conv3d": int8_conv3d, "int8_quantize": int8_quantize}
+            "int8_conv3d": int8_conv3d, "int8_quantize": int8_quantize,
+            "int8_absmax": int8_absmax}
 
 
 def _counts():
     return {k: f.launches for k, f in _counted().items()}
 
 
-def _want(census_aml=0, census=0, int8_conv3d=0):
+def _want(census_aml=0, census=0, int8_conv3d=0, int8_absmax=0):
     """The kernels' launch counts a path must show: each int8 conv
-    quantizes its input once (int8_quantize, then the fused int8_conv3d)."""
+    quantizes its input once (int8_quantize, then the fused int8_conv3d);
+    int8_absmax runs once an int8 conv in dynamic mode, never in static
+    mode, and once a flagged conv in a calibration forward."""
     return {"census_aml": census_aml, "census": census,
-            "int8_conv3d": int8_conv3d, "int8_quantize": int8_conv3d}
+            "int8_conv3d": int8_conv3d, "int8_quantize": int8_conv3d,
+            "int8_absmax": int8_absmax}
 
 
 def _reset_counts():
@@ -1643,8 +1678,9 @@ def _mesh_want(key):
     """A request's launches on each rank of the mesh of ``key``."""
     if key == "gcnet16":
         return _want(census=1)
-    # MS-GCNet "all" at 256x512: conv3dbn_2 and block_3d_1 run int8
-    return _want(census_aml=1, int8_conv3d=2 if key == "gcnet_int8" else 0)
+    # MS-GCNet "all" dynamic at 256x512: conv3dbn_2 and block_3d_1 run int8
+    n = 2 if key == "gcnet_int8" else 0
+    return _want(census_aml=1, int8_conv3d=n, int8_absmax=n)
 
 
 def _mesh_serve(server, requests, timed: int) -> dict:
@@ -2293,6 +2329,75 @@ def _profiled_ms(runs: dict, patterns: dict) -> dict:
             (cuda_time_ms(f, 10), "events") for k, f in runs.items()}
 
 
+def _activation_ms(x, sx) -> dict:
+    """Device ms of one call each of int8_quantize, int8_absmax (its
+    kernel, and the memset that zeroes its output) and the aminmax pass
+    (torch.aminmax over each sample, the max-abs kernel's library call), all
+    in one profiler session of 10 calls each; the median of up to three
+    sessions that record at least 9 launches of each. Where none of six
+    does, ``queued_ms`` times each call (the memset inside the max-abs)."""
+    import torch
+    from msnets_tpu_torch.ops.cuda.int8_quantize import (int8_absmax,
+                                                         int8_quantize)
+    flat = x.reshape(x.shape[0], -1)
+    runs = {"quantize": lambda: int8_quantize(x, sx),
+            "absmax": lambda: int8_absmax(x),
+            "library": lambda: torch.aminmax(flat, dim=1)}
+
+    def bucket(name):
+        return ("quantize" if "int8_quantize_tile" in name else
+                "absmax" if "int8_absmax" in name else
+                "zero" if name.startswith("Memset") else "library")
+
+    got = {k: [] for k in ("quantize", "absmax", "zero", "library")}
+    for _ in range(6):
+        seen = device_kernels_ms(lambda: [f() for f in runs.values()], 10)
+        per = {k: [] for k in got}
+        for name, (ms, count) in seen.items():
+            per[bucket(name)].append((ms, count))
+        if all(per[k] and max(c for _, c in per[k]) >= 9 for k in runs):
+            for k, hits in per.items():
+                calls = max([c for _, c in hits], default=1)
+                got[k].append(sum(ms * c for ms, c in hits) / calls)
+        if len(got["quantize"]) == 3:
+            break
+    if got["quantize"]:
+        out = {k: float(np.median(v)) for k, v in got.items()}
+        out["timing"] = "profiler"
+        return out
+    log("activation path: no profiler session recorded every kernel; the "
+        "last one saw " + ", ".join(f"{k} {len(v)} kernels, "
+                                    f"{max([c for _, c in v], default=0)} "
+                                    f"launches" for k, v in per.items()))
+    out = {k: queued_ms(f, 10) for k, f in runs.items()}
+    out.update(zero=0.0, timing="queued events")
+    return out
+
+
+def _quant_ablations(x, sx) -> dict:
+    """int8_quantize's ablations (QUANT_ABLATIONS) on ``x``: each variant's
+    C function called directly (the wrapper's count stays as it is), its
+    profiler device time as ``_profiled_ms`` gives it; {label: (ms, how)}."""
+    import torch
+    from msnets_tpu_torch.ops.cuda import _build
+    from msnets_tpu_torch.ops.cuda import int8_quantize as Q
+    from msnets_tpu_torch.ops.cuda.int8_conv3d import padded_channels
+    n, c, d, h, w = x.shape
+    out = torch.empty((n, d, h, w, padded_channels(c)), dtype=torch.int8,
+                      device=x.device)
+    stream = torch.cuda.current_stream().cuda_stream
+    res = {}
+    for label, defines in QUANT_ABLATIONS.items():
+        fn = Q._bind(_build.load("int8_quantize", defines))
+        args = (x.data_ptr(), sx.data_ptr(), int(sx.numel() > 1),
+                out.data_ptr(), Q._DTYPES[x.dtype], n, c, d, h, w,
+                out.shape[-1], stream)
+        assert fn(*args) == 0, label
+        res[label] = _profiled_ms({"k": lambda: fn(*args)},
+                                  {"k": r"int8_quantize_tile<"})["k"]
+    return res
+
+
 def _bound(t):
     """``t``'s bound from its "bytes" and "ops" (with their rate)."""
     t["bytes_ms"] = t["bytes"] / HBM_BYTES_PER_S * 1e3
@@ -2303,22 +2408,29 @@ def _bound(t):
 
 
 def _int8_kernel(state):
-    """(a) int8_quantize and int8_conv3d, raw and fused, against their
-    plain versions: at the edge shapes exactly (raw int32 equality; fused
-    bfloat16 and float32 and int8_quantize bit for bit) against the plain
-    versions computed on the host CPU; then at every shape the servers give
-    the conv at full size (where the persistent blocks walk many tiles)
-    exactly against the plain versions on the card, with each kernel's
-    profiler time, its bound, its plain version's time and, for the conv,
-    a bf16 F.conv3d of the same shape as a yardstick; and the conv's SASS."""
+    """(a) int8_absmax, int8_quantize and int8_conv3d, raw and fused,
+    against their plain versions: at the edge shapes exactly (raw int32
+    equality; fused bfloat16 and float32, int8_quantize and int8_absmax bit
+    for bit) against the plain versions computed on the host CPU; then at
+    every shape the servers give the conv at full size (where the
+    persistent blocks walk many tiles) exactly against the plain versions
+    on the card, with each kernel's profiler time, its bound, its plain
+    version's time and, for the conv, a bf16 F.conv3d of the same shape as
+    a yardstick, for the max-abs the aminmax pass; int8_quantize's
+    ablations; and the conv's SASS."""
     import torch
     import torch.nn.functional as F
-    from msnets_tpu_torch.models.quant import sample_absmax
+    from msnets_tpu_torch.models.quant import sample_absmax_reference
     from msnets_tpu_torch.ops.cuda.int8_conv3d import (
         dequantize_reference, int8_conv3d, int8_conv3d_dequant,
-        int8_conv3d_reference, pack_weights)
+        int8_conv3d_reference, pack_weights, padded_channels)
     from msnets_tpu_torch.ops.cuda.int8_quantize import (
-        int8_quantize, int8_quantize_reference)
+        int8_absmax, int8_absmax_reference, int8_quantize,
+        int8_quantize_reference)
+
+    def same_bits(a, b):
+        return torch.equal(a.cpu().view(torch.int32),
+                           b.cpu().view(torch.int32))
     _int8_sass(state)
     rng = np.random.default_rng(20)
     for name, shape, cout, stride, pad in INT8_CASES:
@@ -2347,15 +2459,18 @@ def _int8_kernel(state):
                 q = int8_quantize(x.cuda(), sx.cuda())
                 assert torch.equal(q.cpu(), int8_quantize_reference(x, sx)), (
                     name, n, dt)
+                assert same_bits(int8_absmax(x.cuda()),
+                                 int8_absmax_reference(x)), (name, n, dt)
         log(f"int8 {name}: x {shape} cout {cout} stride {stride} padding "
             f"{pad} -> {tuple(got.shape)}: raw max |d| {diff}; fused bf16 "
-            f"and float32 ({len(fused)} runs, per-sample and scalar scales) "
-            f"and int8_quantize bit for bit, against the plain versions on "
-            f"the host ({time.perf_counter() - t0:.2f} s)")
+            f"and float32 ({len(fused)} runs, per-sample and scalar scales), "
+            f"int8_quantize and int8_absmax bit for bit, against the plain "
+            f"versions on the host ({time.perf_counter() - t0:.2f} s)")
     state["max_abs_err"]["int8_conv3d"] = 0.0
     state["max_abs_err"]["int8_quantize"] = 0.0
+    state["max_abs_err"]["int8_absmax"] = 0.0
     gen = torch.Generator(device="cuda").manual_seed(20)
-    conv, quant = {}, {}
+    conv, quant, absmax = {}, {}, {}
     for name, shape, cout, stride in INT8_TIMED:
         xq, wq = (t.cuda() for t in _int8_operands(shape, cout, rng))
         wp = pack_weights(wq)
@@ -2383,13 +2498,12 @@ def _int8_kernel(state):
         n, d, h, w, c = shape
         x = (torch.randn((n, c, d, h, w), device="cuda", generator=gen)
              * 3.0).to(torch.bfloat16)
-        qrun = lambda: int8_quantize(x, sx)                      # noqa: E731
         qplain = lambda: int8_quantize_reference(x, sx)          # noqa: E731
-        assert torch.equal(qrun(), qplain()), name
-        ms = _profiled_ms({"fused": fused, "raw": raw, "quantize": qrun},
+        assert torch.equal(int8_quantize(x, sx), qplain()), name
+        assert same_bits(int8_absmax(x), int8_absmax_reference(x)), name
+        ms = _profiled_ms({"fused": fused, "raw": raw},
                           {"fused": r"int8_conv3d_wgmma<.*, 2>\(",
-                           "raw": r"int8_conv3d_wgmma<.*, 0>\(",
-                           "quantize": r"int8_quantize_tile<"})
+                           "raw": r"int8_conv3d_wgmma<.*, 0>\("})
         t = _bound({"ms": ms["fused"][0], "timing": ms["fused"][1],
                     "ms_raw": ms["raw"][0],
                     "plain_ms": cuda_time_ms(plain, 2),
@@ -2412,24 +2526,56 @@ def _int8_kernel(state):
             f"{t['raw_bound_ms']:.4f} ms, {t['ms_raw'] / t['raw_bound_ms']:.2f}x"
             f" [{state['smi']}]")
         conv[name] = t
-        q = _bound({"ms": ms["quantize"][0], "timing": ms["quantize"][1],
+        act = _activation_ms(x, sx)
+        q = _bound({"ms": act["quantize"], "timing": act["timing"],
                     "plain_ms": cuda_time_ms(qplain, 5), "library_ms": None,
-                    "bytes": 2 * x.numel() + qrun().numel(),
+                    "bytes": 2 * x.numel() + n * d * h * w * padded_channels(c),
                     "ops": x.numel(), "ops_rate": F32_OPS_PER_S})
-        sample_absmax(x)                                    # warm
-        q["absmax_ms"] = cuda_time_ms(lambda: sample_absmax(x), 10)
+        q["ablations"] = _quant_ablations(x, sx)
+        # the conv's input as the model gives it: after a ReLU
+        relu = x.clamp_min(0)
+        assert torch.equal(int8_quantize(relu, sx),
+                           int8_quantize_reference(relu, sx)), name
+        q["relu_ms"] = _profiled_ms({"k": lambda: int8_quantize(relu, sx)},
+                                    {"k": r"int8_quantize_tile<"})["k"]
+        q["relu_ablations"] = _quant_ablations(relu, sx)
+        del relu
+        a = _bound({"ms": act["absmax"] + act["zero"],
+                    "kernel_ms": act["absmax"], "zero_ms": act["zero"],
+                    "timing": act["timing"],
+                    "plain_ms": cuda_time_ms(
+                        lambda: sample_absmax_reference(x), 10),
+                    "library_ms": act["library"],
+                    "bytes": 2 * x.numel() + 4 * n,
+                    "ops": x.numel(), "ops_rate": F32_OPS_PER_S})
+        ablated = {key: ", ".join(f"{k} {v[0]:.4f} ms ({v[1]})"
+                                  for k, v in q[key].items())
+                   for key in ("ablations", "relu_ablations")}
         log(f"int8_quantize {name} input bf16 {tuple(x.shape)}: bit for bit "
             f"against the plain version on the card; {q['ms']:.4f} ms/call "
             f"({q['timing']}), plain {q['plain_ms']:.4f} ms, bound "
             f"{q['bound_ms']:.4f} ms by {q['bound_by']} "
             f"({q['bytes'] / 1e6:.1f} MB), {q['ms'] / q['bound_ms']:.2f}x; "
-            f"the dynamic scale's aminmax pass {q['absmax_ms']:.4f} ms "
-            f"(events) [{state['smi']}]")
-        quant[name] = q
+            f"ablations: {ablated['ablations']}; after a ReLU (half zeros, "
+            f"bit for bit): {q['relu_ms'][0]:.4f} ms ({q['relu_ms'][1]}), "
+            f"{q['relu_ms'][0] / q['bound_ms']:.2f}x, ablations: "
+            f"{ablated['relu_ablations']} [{state['smi']}]")
+        log(f"int8_absmax {name} input bf16 {tuple(x.shape)}: bit for bit "
+            f"against the plain version on the card; {a['ms']:.4f} ms/call "
+            f"({a['timing']}: kernel {a['kernel_ms']:.4f}, zeroing memset "
+            f"{a['zero_ms']:.4f}), plain (aminmax, maximum, abs) "
+            f"{a['plain_ms']:.4f} ms, library (the aminmax pass, same "
+            f"session) {a['library_ms']:.4f} ms, bound {a['bound_ms']:.4f} "
+            f"ms by {a['bound_by']} ({a['bytes'] / 1e6:.1f} MB), "
+            f"{a['ms'] / a['bound_ms']:.2f}x; with int8_quantize "
+            f"{a['ms'] + q['ms']:.4f} ms against both bounds "
+            f"{a['bound_ms'] + q['bound_ms']:.4f} [{state['smi']}]")
+        quant[name], absmax[name] = q, a
         del x, xb, wb, xq, wq
         torch.cuda.empty_cache()
     state["int8_conv3d"] = dict(conv["conv3dbn_2"], by_conv=conv)
     state["int8_quantize"] = dict(quant["conv3dbn_2"], by_conv=quant)
+    state["int8_absmax"] = dict(absmax["conv3dbn_2"], by_conv=absmax)
 
 
 def _serve_quant_cfg(**model):
@@ -2501,8 +2647,9 @@ def _quant_servers(state):
         launches = _counts()                        # main path ends here
         for (a, _), d in zip(requests, outs):
             _check_disp(d, a.shape, cfg.model.max_disp)
-        want = _want(census_aml=len(requests),
-                     int8_conv3d=3 * per[0] + per[1])
+        n_int8 = 3 * per[0] + per[1]
+        want = _want(census_aml=len(requests), int8_conv3d=n_int8,
+                     int8_absmax=n_int8 if mode == "dynamic" else 0)
         diff = np.abs(server.predict(l, r) - ref[model])
         m = cfg.model
         log(f"serve_quant {key} ({model}, quant_scope {scope}, {mode}, "
@@ -2575,7 +2722,8 @@ def _psmnet_full_outer(state, servers, sds):
         f"375x1242, launches {launches} (int8 convs {n_int8} by "
         f"quant_convs); |d disparity| against the packed_eval_outer=True "
         f"server mean {diff.mean():.4g} px, max {diff.max():.4g} px")
-    assert launches == _want(census_aml=1, int8_conv3d=n_int8), launches
+    assert launches == _want(census_aml=1, int8_conv3d=n_int8,
+                             int8_absmax=n_int8), launches
     assert diff.mean() < PRECISION_MEAN_PX, diff.mean()
     state["serve_quant_psmnet_full_outer"] = {"mean_px": float(diff.mean())}
     return launches
@@ -2583,9 +2731,14 @@ def _psmnet_full_outer(state, servers, sds):
 
 def _quant_cli(state):
     """(c) The CLI's --mode test --quant_eval 1 --quant_mode static on phase
-    15's grey tree and checkpoint: one calibration forward, then the
-    frames in int8 (375x1242: 3 int8 convs each); finite scores."""
+    15's grey tree and checkpoint: one calibration forward (int8_absmax once
+    a flagged conv), then the frames in int8 (375x1242: 3 int8 convs
+    each); finite scores."""
+    from msnets_tpu_torch.config import ModelConfig
     from msnets_tpu_torch.experiments.cross_domain import _scores
+    from msnets_tpu_torch.models import quant_convs
+    flagged = len(quant_convs("MS-GCNet", ModelConfig(quant_eval=True),
+                              KITTI_VOLUME))
     c = state.pop("cli")
     _reset_counts()                                 # main path starts here
     t0 = time.perf_counter()
@@ -2599,10 +2752,12 @@ def _quant_cli(state):
         f"{CLI_FRAMES} frames of 375x1242: {secs:.2f} s, AVG EPE "
         f"{scores[0]}, bad-3 {scores[1]} (bf16 without int8: "
         f"{c['scores'][0]}, {c['scores'][1]}); launches {launches} "
+        f"(the calibration forward's {flagged} flagged convs) "
         f"[{state['smi']}]")
     assert all(np.isfinite(v) for v in scores), scores
     assert launches == _want(census_aml=CLI_FRAMES + 1,
-                             int8_conv3d=3 * CLI_FRAMES), launches
+                             int8_conv3d=3 * CLI_FRAMES,
+                             int8_absmax=flagged), launches
     shutil.rmtree(CLI_ROOT, ignore_errors=True)
     return launches
 
@@ -2672,6 +2827,9 @@ def main() -> int:
         "int8_quantize": ("msnets_tpu_torch/csrc/int8_quantize.cu",
                           "msnets_tpu/models/layers.py:89 (_quant_act, "
                           "XLA)"),
+        "int8_absmax": ("msnets_tpu_torch/csrc/int8_quantize.cu",
+                        "msnets_tpu/models/layers.py:111 (_quant_act's "
+                        "max pass, XLA), 859 (the calibration's)"),
     }
     kernels = []
     for name, (source, replaces) in sources.items():

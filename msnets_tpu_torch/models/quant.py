@@ -10,11 +10,12 @@ float32 kernel ``kf`` and bias ``b``::
     acc = int8 conv3d(xq, kq)             # exact int32 sums
     y = (float32(acc) * (sx * sk)).to(dtype) + b.to(dtype)
 
-in that order, as the JAX lowerings do. It runs as two kernels on the card:
+in that order, as the JAX lowerings do. It runs as kernels on the card:
 ``ops/cuda/int8_quantize.py`` writes ``xq`` channels last, and
 ``ops/cuda/int8_conv3d.py``'s ``int8_conv3d_dequant`` sums on the int8
-tensor cores and writes ``y``; the dynamic scale's max-abs pass is one
-``torch.aminmax``. On the CPU both kernels take their plain versions.
+tensor cores and writes ``y``; the dynamic scale's max-abs pass is a third
+kernel (``int8_absmax``, beside the quantize). On the CPU the kernels take
+their plain versions.
 
 **Which convs run int8.** The JAX models flag some convs ``quant`` and a
 flagged conv runs int8 only in its TPU layouts: (a) a stride-1 conv that
@@ -56,7 +57,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.cuda.int8_conv3d import int8_conv3d_dequant, pack_weights
-from ..ops.cuda.int8_quantize import int8_quantize, quantize_values
+from ..ops.cuda.int8_quantize import (int8_absmax, int8_absmax_reference,
+                                      int8_quantize, quantize_values)
 from ..ops.matchers import _div_const
 from ..parallel import halo
 from ..parallel import mesh as pm
@@ -69,13 +71,18 @@ _EPS = 1e-12
 
 
 def sample_absmax(x: torch.Tensor) -> torch.Tensor:
-    """Each sample's max-abs in float32, shape ``[N, 1, ...]``: ``max(-min,
-    max)`` of one ``aminmax`` pass in x's dtype, equal to
-    ``x.float().abs().amax(every dim but the first)`` bit for bit
-    (negation and widening to float32 are exact; ``abs`` makes a zero
-    positive)."""
-    lo, hi = torch.aminmax(x.reshape(x.shape[0], -1), dim=1)
-    amax = torch.maximum(-lo.float(), hi.float()).abs()
+    """Each sample's max-abs in float32, shape ``[N, 1, ...]``, equal to
+    ``x.float().abs().amax(every dim but the first)`` bit for bit: the
+    ``int8_absmax`` kernel on a CUDA tensor, ``sample_absmax_reference`` on
+    a CPU one."""
+    amax = int8_absmax(x.contiguous())
+    return amax.view((-1,) + (1,) * (x.dim() - 1))
+
+
+def sample_absmax_reference(x: torch.Tensor) -> torch.Tensor:
+    """The plain version of ``sample_absmax``: one ``aminmax`` pass
+    (``int8_absmax_reference``)."""
+    amax = int8_absmax_reference(x.contiguous())
     return amax.view((-1,) + (1,) * (x.dim() - 1))
 
 

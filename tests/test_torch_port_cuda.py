@@ -1,5 +1,5 @@
-"""The port on the GPU: the census, census_aml, int8_quantize and
-int8_conv3d kernels against their plain PyTorch versions, and the feature
+"""The port on the GPU: the census, census_aml, int8_absmax, int8_quantize
+and int8_conv3d kernels against their plain PyTorch versions, and the feature
 stage, the server (8-channel, 16-channel and raw variants, ``predict`` and
 ``predict_stream``; MS-PSMNet), the train
 step (MS-GCNet; MS-PSMNet with and without remat), the checkpoint round trip
@@ -550,6 +550,148 @@ def test_int8_quantize_and_fused_conv_reject_bad_inputs(cuda):
     with pytest.raises(TypeError):
         int8_conv3d_dequant(xq.float(), wp.to(cuda), one, ones, ones, 1,
                             (1, 1, 1), torch.float32)
+
+
+ABSMAX_SHAPES = [       # x [N, ...]: odd dims; C=5, W=11 (a sample stride
+    (1, 3, 5, 7, 9),    # that is no multiple of 16 bytes); a 2-D input; a
+    (2, 5, 3, 3, 11),   # volume of many blocks a sample
+    (2, 5, 3, 4, 11),
+    (3, 1001),
+    (2, 32, 8, 64, 128),
+]
+
+
+def _same_bits(got, want):
+    """Equal float32 bits, NaNs by position."""
+    got, want = got.cpu().numpy(), want.cpu().numpy()
+    nan = np.isnan(want)
+    np.testing.assert_array_equal(np.isnan(got), nan)
+    np.testing.assert_array_equal(got[~nan].view(np.int32),
+                                  want[~nan].view(np.int32))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", ABSMAX_SHAPES)
+def test_int8_absmax_kernel_matches_plain(cuda, shape, dtype):
+    """The max-abs kernel equals its plain version bit for bit: random
+    samples, then (N >= 2) a NaN in sample 0 only, +-inf in sample 1 only,
+    an all-zero sample and one of negative zeros; and on a view whose start
+    is not 16-byte aligned. One launch a call."""
+    from msnets_tpu_torch.ops.cuda.int8_quantize import (
+        int8_absmax, int8_absmax_reference)
+    rng = np.random.default_rng(sum(shape))
+    tdt = getattr(torch, dtype)
+    x = rng.standard_normal(shape).astype(np.float32) * 50.0
+    cases = [x]
+    if shape[0] >= 2:
+        for fill in (np.nan, np.inf, -np.inf):
+            y = x.copy()
+            y.reshape(shape[0], -1)[0 if fill != fill else 1, 7] = fill
+            cases.append(y)
+        y = x.copy()
+        y[0], y[1] = 0.0, -0.0
+        cases.append(y)
+    for y in cases:
+        t = torch.from_numpy(y).to(tdt)
+        before = int8_absmax.launches
+        got = int8_absmax(t.to(cuda))
+        torch.cuda.synchronize()
+        assert int8_absmax.launches == before + 1
+        assert got.dtype == torch.float32 and got.shape == (shape[0],)
+        _same_bits(got, int8_absmax_reference(t))
+    flat = torch.from_numpy(x).to(tdt).reshape(-1).to(cuda)
+    base = torch.cat([flat[:1], flat])
+    view = base[1:].view(shape)
+    assert view.data_ptr() % 16 != 0 and view.is_contiguous()
+    _same_bits(int8_absmax(view), int8_absmax_reference(view.cpu()))
+
+
+def test_int8_absmax_kernel_rejects_bad_inputs(cuda):
+    from msnets_tpu_torch.ops.cuda.int8_quantize import int8_absmax
+    x = torch.ones((2, 3, 4), device=cuda)
+    with pytest.raises(TypeError):
+        int8_absmax(x.half())
+    with pytest.raises(ValueError):
+        int8_absmax(x.transpose(1, 2))
+    with pytest.raises(ValueError):
+        int8_absmax(x[:, :0])
+
+
+QUANTIZE_EDGES = [      # x [N, C, D, H, W]
+    (1, 32, 2, 3, 13),      # W no multiple of 8: the plain loader
+    (2, 32, 1, 1, 100),     # fewer positions than a tile (256 at Cp 32)
+    (1, 32, 1, 1, 257),     # a tile and one position
+    (1, 32, 2, 2, 64),      # a tile exactly
+    (2, 20, 3, 8, 40),      # Cp 32 from 20 channels, ragged last tile
+    (1, 64, 3, 5, 24),      # Cp 64, tiles of 128
+    (2, 48, 1, 3, 43),      # Cp 64, unaligned
+    (1, 128, 2, 4, 16),     # Cp 128, tiles of 64
+    (1, 100, 1, 5, 13),     # Cp 128 from 100 channels, unaligned
+    (1, 128, 1, 1, 65),     # Cp 128, a tile and one position
+]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", QUANTIZE_EDGES)
+def test_int8_quantize_kernel_edge_shapes(cuda, shape, dtype):
+    """int8_quantize at the tiling's edges (see QUANTIZE_EDGES), with a
+    scale a sample and one for all, and on a view whose start is not
+    16-byte aligned: bit for bit against the plain version on the CPU, one
+    launch a call."""
+    from msnets_tpu_torch.ops.cuda.int8_quantize import (
+        int8_quantize, int8_quantize_reference)
+    rng = np.random.default_rng(sum(shape) + len(dtype))
+    tdt = getattr(torch, dtype)
+    x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)
+                         * 4.0).to(tdt)
+    for sx in (torch.from_numpy(rng.uniform(0.01, 0.05, shape[0]).astype(
+            np.float32)), torch.tensor(np.float32(0.02))):
+        before = int8_quantize.launches
+        got = int8_quantize(x.to(cuda), sx.to(cuda))
+        torch.cuda.synchronize()
+        assert int8_quantize.launches == before + 1
+        assert torch.equal(got.cpu(), int8_quantize_reference(x, sx))
+    flat = x.reshape(-1).to(cuda)
+    view = torch.cat([flat[:1], flat])[1:].view(shape)
+    assert view.data_ptr() % 16 != 0
+    assert torch.equal(int8_quantize(view, sx.to(cuda)).cpu(),
+                       int8_quantize_reference(x, sx))
+
+
+def _tie_values(rng, scales):
+    """Values that sit on and next to the half-integers k + 0.5 of x / s,
+    float32 [len(scales), 32, 4096]: where round half to even and the
+    division's own rounding decide the int8."""
+    k = rng.integers(-130, 130, (len(scales), 32, 1024)).astype(np.float32)
+    t = ((k + np.float32(0.5)) * np.asarray(scales, np.float32)[:, None, None])
+    steps = np.arange(-2, 2, dtype=np.int32).reshape(1, 1, 1, 4)
+    bits = t.view(np.int32)[..., None] + steps
+    return bits.view(np.float32).reshape(len(scales), 32, 4096)
+
+
+def test_int8_quantize_kernel_every_bf16_value(cuda):
+    """The kernel equals the plain version (a true division on the host)
+    bit for bit on every finite bfloat16 value, and on float32 values on
+    and next to the rounding edges, at scales from dynamic absmaxes (amax *
+    float32(1/127)), powers of two and extreme scales."""
+    from msnets_tpu_torch.ops.cuda.int8_quantize import (
+        int8_quantize, int8_quantize_reference)
+    from msnets_tpu_torch.ops.matchers import _div_const
+    rng = np.random.default_rng(13)
+    amax = torch.tensor([1.0, 3.3, 127.0, 0.01, 1e4, 2.5e-3, 7.0, 42.42])
+    scales = torch.cat([_div_const(amax, 127.0),
+                        torch.tensor([2.0 ** -20, 0.5, 1e-31, 1e31, 3e-38])])
+    bits = np.arange(1 << 16, dtype=np.uint32).astype(np.uint16)
+    bf = torch.from_numpy(bits.view(np.int16)).view(torch.bfloat16)
+    bf = bf[torch.isfinite(bf.float())]
+    bf = torch.cat([bf, bf[:(-bf.numel()) % 32]]).reshape(1, 32, 1, 1, -1)
+    ties = torch.from_numpy(_tie_values(rng, scales.tolist()))
+    for i, s in enumerate(scales.tolist()):
+        sx = torch.tensor(np.float32(s), device=cuda)
+        for x in (bf.to(cuda), ties[i].reshape(1, 32, 1, 1, -1).to(cuda)):
+            assert torch.equal(int8_quantize(x, sx).cpu(),
+                               int8_quantize_reference(x.cpu(), sx.cpu())), (
+                s, x.dtype)
 
 
 @pytest.mark.parametrize("model,mode,n_int8", [

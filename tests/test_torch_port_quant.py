@@ -29,7 +29,8 @@ from msnets_tpu_torch.models.quant import (QuantConv3d, QuantSite,
 from msnets_tpu_torch.ops.cuda.int8_conv3d import (
     int8_conv3d, int8_conv3d_dequant, int8_conv3d_dequant_reference,
     int8_conv3d_reference, pack_weights)
-from msnets_tpu_torch.ops.cuda.int8_quantize import (int8_quantize,
+from msnets_tpu_torch.ops.cuda.int8_quantize import (int8_absmax,
+                                                     int8_quantize,
                                                      int8_quantize_reference)
 
 
@@ -595,6 +596,104 @@ def test_sample_absmax_is_exact(dtype):
     assert got.dtype == torch.float32 and got.shape == want.shape
     np.testing.assert_array_equal(got.numpy().view(np.int32),
                                   want.numpy().view(np.int32))
+
+
+_abs_max_jit = jax.jit(lambda x: jnp.max(jnp.abs(x.astype(jnp.float32)),
+                                         axis=tuple(range(1, x.ndim))))
+ABSMAX_CASES = ["negative_extreme", "zero_and_negative_zero", "inf",
+                "subnormal", "nan"]
+
+
+def _absmax_input(case, n, rng):
+    """float32 [n, 3, 4, 5, 6] values of ``case``: each sample's extreme
+    negative or positive, an all-zero sample beside one of negative zeros,
+    +-inf, subnormal samples (one with a normal extreme), a NaN in sample
+    0 only."""
+    x = rng.standard_normal((n, 3, 4, 5, 6)).astype(np.float32) * 7.0
+    if case == "negative_extreme":
+        x[0, 1, 2, 3, 4] = -1e4
+        x[-1, 0, 0, 0, 0] = -3e4 if n == 1 else 3e4
+    elif case == "zero_and_negative_zero":
+        x[0] = 0.0
+        x[0, :, :2] = -0.0
+        x[-1] = -0.0 if n == 2 else x[-1]
+    elif case == "inf":
+        x[0, 2, 1, 0, 3] = -np.inf
+        x[-1, 0, 3, 4, 5] = np.inf
+    elif case == "subnormal":
+        x *= np.float32(1e-40)
+        x[0, 0, 0, 0, 0] = -3e-39
+        if n == 2:
+            x[1, 2, 2, 2, 2] = -2.5
+    elif case == "nan":
+        x[0, 1, 1, 1, 1] = np.nan
+    return x
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n", [1, 2])
+@pytest.mark.parametrize("case", ABSMAX_CASES)
+def test_sample_absmax_matches_jax_max_pass(case, n, dtype):
+    """sample_absmax (the int8_absmax wrapper, its plain version on the
+    CPU) against the max pass of JAX's _quant_act, jnp.max(jnp.abs(xf))
+    over every axis but the batch, on float32 and bfloat16 inputs (JAX is
+    given their float32 values): bit for bit, NaNs by position. XLA:CPU
+    flushes subnormals to zero, so a sample whose max is subnormal reads 0
+    there; the port keeps the exact subnormal (numpy's max) as the card's
+    kernel does. The dynamic scale, max(amax, 1e-12) / 127, equals
+    _quant_act's bit for bit in every case."""
+    rng = np.random.default_rng(ABSMAX_CASES.index(case) + 10 * n)
+    x = torch.from_numpy(_absmax_input(case, n, rng)).to(getattr(torch, dtype))
+    xf = x.float().numpy()
+    got = sample_absmax(x)
+    assert got.dtype == torch.float32 and got.shape == (n, 1, 1, 1, 1)
+    got = got.reshape(n).numpy()
+    jax_max = np.asarray(_abs_max_jit(xf))
+    exact = np.abs(xf).reshape(n, -1).max(axis=1)
+    nan = np.isnan(got)
+    np.testing.assert_array_equal(nan, np.isnan(jax_max))
+    np.testing.assert_array_equal(nan, np.isnan(exact))
+    assert nan.any() == (case == "nan")
+    sub = ~nan & (got != 0) & (got < np.finfo(np.float32).tiny)
+    assert sub.any() == (case == "subnormal")
+    assert (jax_max[sub] == 0).all()
+    keep = ~nan & ~sub
+    np.testing.assert_array_equal(got[keep].view(np.int32),
+                                  jax_max[keep].view(np.int32))
+    np.testing.assert_array_equal(got[~nan].view(np.int32),
+                                  exact[~nan].view(np.int32))
+    scale = activation_scale(x).reshape(n).numpy()
+    want = np.asarray(_quant_act_jit(xf)[1]).reshape(n)
+    np.testing.assert_array_equal(np.isnan(scale), nan)
+    np.testing.assert_array_equal(scale[~nan].view(np.int32),
+                                  want[~nan].view(np.int32))
+    assert int8_absmax.launches == 0              # no kernel on the CPU
+
+
+BAD_ABSMAX_INPUTS = {
+    "float16": (lambda: torch.ones((2, 3, 4), dtype=torch.float16),
+                TypeError),
+    "empty": (lambda: torch.ones((2, 0, 4)), ValueError),
+    "zero_samples": (lambda: torch.ones((0, 3)), ValueError),
+    "scalar": (lambda: torch.tensor(1.0), ValueError),
+    "non_contiguous": (lambda: torch.ones((4, 3, 5)).transpose(1, 2),
+                       ValueError),
+    "meta_device": (lambda: torch.ones((2, 3), device="meta"), ValueError),
+}
+
+
+@pytest.mark.parametrize("bad", list(BAD_ABSMAX_INPUTS))
+def test_int8_absmax_checks_its_input(bad):
+    """The wrapper refuses float16, an empty input, a non-contiguous one
+    and a device that is neither the CPU nor CUDA; int8_quantize refuses a
+    scale on another device than x. Nothing launches."""
+    make, err = BAD_ABSMAX_INPUTS[bad]
+    with pytest.raises(err, match="int8_absmax"):
+        int8_absmax(make())
+    with pytest.raises(ValueError, match="int8_quantize: x on cpu"):
+        int8_quantize(torch.ones((1, 2, 3, 3, 3)),
+                      torch.ones(1, device="meta"))
+    assert int8_absmax.launches == 0 and int8_quantize.launches == 0
 
 
 # -- packed_eval_outer ---------------------------------------------------------
