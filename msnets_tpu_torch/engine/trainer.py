@@ -4,7 +4,11 @@ the device (counterpart of ``msnets_tpu/engine/trainer.py``).
 One step takes uint8 image crops, computes the matching-space features
 (``ms_features_train``, one sample at a time, so one ``census_aml`` launch a
 sample for 8 channels or one ``census`` launch for 16), runs the model in
-train mode, the loss, the gradients, Adam and the BatchNorm updates.
+train mode, the loss, the gradients, Adam and the BatchNorm updates. In a
+profiler's trace (``utils.profiling.span``) a step is ``trainer.step``
+around ``trainer.h2d``, ``features``, ``regularizer.forward``,
+``trainer.loss``, ``regularizer.backward``, ``trainer.metrics``,
+``trainer.allreduce`` (over a group) and ``trainer.optimizer``.
 
 Where the JAX package carries a ``TrainState`` through a jitted function,
 the port's ``Trainer`` owns its state and updates it in place: the model
@@ -73,6 +77,7 @@ from ..ops.features import ms_features_train
 from ..ops.matchers import _div_const
 from ..parallel import mesh as pm
 from ..runtime import DeviceLike, resolve_device
+from ..utils.profiling import span
 from . import checkpoint as ckpt
 from . import loss as L
 
@@ -162,7 +167,7 @@ class Trainer:
         feature volume [N, C, D, H, W] in ``dtype`` (the compute dtype by
         default); one ``ms_features_train`` per sample."""
         m = self.cfg.matching
-        with torch.no_grad():
+        with torch.no_grad(), span("features"):
             return torch.stack([ms_features_train(
                 a, b, self.cfg.model.max_disp, m, board_h, bwl, bwr,
                 m.left_only, dtype or self.dtype) for a, b in zip(iml, imr)])
@@ -174,19 +179,22 @@ class Trainer:
         feats = self.features(iml, imr, *geometry)
         if self.mesh is not None:
             feats = pm.shard_volume(feats, self.mesh)
-        out = self.model(feats)
+        with span("regularizer.forward"):
+            out = self.model(feats)
         disp = out[-1] if self.is_psmnet else out
         if self.mesh is not None:
             target = pm.shard_volume(target, self.mesh, disp.spec)
-        mask = L.train_valid_mask(target, max_disp)
-        if self.is_psmnet:
-            loss = L.psmnet_loss(*out, target, mask, self.is_kitti,
-                                 t.loss2_thresh, t.loss2_alpha)
-        else:
-            loss = L.gcnet_loss(disp, target, mask, self.is_kitti,
-                                t.loss2_thresh, t.loss2_alpha)
-        loss.backward()
-        with torch.no_grad():
+        with span("trainer.loss"):
+            mask = L.train_valid_mask(target, max_disp)
+            if self.is_psmnet:
+                loss = L.psmnet_loss(*out, target, mask, self.is_kitti,
+                                     t.loss2_thresh, t.loss2_alpha)
+            else:
+                loss = L.gcnet_loss(disp, target, mask, self.is_kitti,
+                                    t.loss2_thresh, t.loss2_alpha)
+        with span("regularizer.backward"):
+            loss.backward()
+        with torch.no_grad(), span("trainer.metrics"):
             disp = disp.detach()
             metrics = {"loss": loss.detach(), "epe": L.epe(disp, target, mask),
                        "accu3": L.valid_accu3(target, disp, mask)}
@@ -208,37 +216,46 @@ class Trainer:
         (numpy or tensors; N is this rank's share of the batch), the
         learning rate -> (metrics, disparity); metrics are 0-dim tensors on
         the device, those of the global batch."""
-        accum = self.cfg.train.grad_accum
-        iml = _as_device(iml, self.device, torch.uint8)
-        imr = _as_device(imr, self.device, torch.uint8)
-        target = _as_device(target, self.device, torch.float32)
-        n = iml.shape[0]
-        if n % accum:
-            raise ValueError(f"batch {n} is no multiple of grad_accum {accum}")
-        m = n // accum
-        self.model.train()
-        self.optimizer.zero_grad(set_to_none=True)
-        outs = [self._micro(iml[k * m:(k + 1) * m], imr[k * m:(k + 1) * m],
-                            target[k * m:(k + 1) * m], geometry)
-                for k in range(accum)]
-        # [accum, metric]: each rank's terms, summed into the global ones
-        per_micro = pm.all_reduce_sum(
-            torch.stack([torch.stack([ms[k] for k in METRICS])
-                         for _, ms in outs]), self.group)
-        if self.group is not None:
-            self._all_reduce_grads()
-        disp = torch.cat([d for d, _ in outs])
-        if accum > 1:
-            for p in self.model.parameters():
-                if p.grad is not None:
-                    p.grad = _div_const(p.grad, accum)
-        means = per_micro[0] if accum == 1 else per_micro.mean(0)
-        metrics = dict(zip(METRICS, means.unbind()))
-        for group in self.optimizer.param_groups:
-            group["lr"] = float(lr)
-        self.optimizer.step()
-        self.step += 1
-        return metrics, disp
+        with span("trainer.step"):
+            accum = self.cfg.train.grad_accum
+            with span("trainer.h2d"):
+                iml = _as_device(iml, self.device, torch.uint8)
+                imr = _as_device(imr, self.device, torch.uint8)
+                target = _as_device(target, self.device, torch.float32)
+            n = iml.shape[0]
+            if n % accum:
+                raise ValueError(
+                    f"batch {n} is no multiple of grad_accum {accum}")
+            m = n // accum
+            self.model.train()
+            with span("trainer.optimizer"):
+                self.optimizer.zero_grad(set_to_none=True)
+            outs = [self._micro(iml[k * m:(k + 1) * m],
+                                imr[k * m:(k + 1) * m],
+                                target[k * m:(k + 1) * m], geometry)
+                    for k in range(accum)]
+            with span("trainer.metrics"):
+                # [accum, metric]: each rank's terms, summed into the
+                # global ones
+                per_micro = pm.all_reduce_sum(
+                    torch.stack([torch.stack([ms[k] for k in METRICS])
+                                 for _, ms in outs]), self.group)
+                means = per_micro[0] if accum == 1 else per_micro.mean(0)
+                metrics = dict(zip(METRICS, means.unbind()))
+            if self.group is not None:
+                with span("trainer.allreduce"):
+                    self._all_reduce_grads()
+            disp = torch.cat([d for d, _ in outs])
+            with span("trainer.optimizer"):
+                if accum > 1:
+                    for p in self.model.parameters():
+                        if p.grad is not None:
+                            p.grad = _div_const(p.grad, accum)
+                for group in self.optimizer.param_groups:
+                    group["lr"] = float(lr)
+                self.optimizer.step()
+            self.step += 1
+            return metrics, disp
 
     def step_fn(self, board_h: int, bwl: int, bwr: int) -> Callable:
         """The train step for crops with margins (board_h, bwl, bwr):

@@ -23,6 +23,11 @@ full-resolution pair, downsampled and bordered by 10 px) and
 ``ms_features_train`` (a train crop with its margins, downsampled; the
 trainer calls it once a sample).
 
+Each step is a span of the profiler's trace (``utils.profiling.span``):
+``features.downsample``, ``features.census_aml`` (``features.census`` on 16
+channels), ``features.ncc``, ``features.zsad``, ``features.sobel_sad`` and
+``features.assemble``; the callers name the stage ``features``.
+
 Layout: the volume is returned as [C, D, H, W], the reference layout and the
 one ``nn.Conv3d`` takes (after a batch axis). The JAX package returns
 [D, H, W, C]; ``msnets_tpu.ops.features.to_ncdhw`` of its output equals the
@@ -47,6 +52,7 @@ import numpy as np
 import torch
 
 from ..config import MatchingConfig
+from ..utils.profiling import span
 from . import matchers as M
 from .cuda.census import census
 from .cuda.census_aml import census_aml
@@ -132,14 +138,20 @@ def compute_costs(iml: torch.Tensor, imr: torch.Tensor, maxdisp: int,
         return trim_dhw(v.permute(2, 0, 1))
 
     if left_only:
-        cen = tuple(trim_dhw(v) for v in census_aml(
-            iml, imr, maxdisp, cfg.censw, cfg.cens_sigma))
+        with span("features.census_aml"):
+            cen = tuple(trim_dhw(v) for v in census_aml(
+                iml, imr, maxdisp, cfg.censw, cfg.cens_sigma))
     else:
-        cen = (trim_dhw(census(iml, imr, maxdisp, cfg.censw)),)
-    c_ncc = M.ncc_nister(iml, imr, maxdisp, cfg.nccw)
-    c_sad = M.zsad(iml, imr, maxdisp, cfg.sadw)
-    c_sob = M.sadsob(M.sobel(iml), M.sobel(imr), maxdisp, cfg.sobelw)
-    return cen + (trim_hwd(c_ncc), trim_hwd(c_sob), trim_hwd(c_sad))
+        with span("features.census"):
+            cen = (trim_dhw(census(iml, imr, maxdisp, cfg.censw)),)
+    with span("features.ncc"):
+        c_ncc = trim_hwd(M.ncc_nister(iml, imr, maxdisp, cfg.nccw))
+    with span("features.zsad"):
+        c_sad = trim_hwd(M.zsad(iml, imr, maxdisp, cfg.sadw))
+    with span("features.sobel_sad"):
+        c_sob = trim_hwd(M.sadsob(M.sobel(iml), M.sobel(imr), maxdisp,
+                                  cfg.sobelw))
+    return cen + (c_ncc, c_sob, c_sad)
 
 
 def _normalize_stack(cen_cost, cen_aml, c_ncc, c_sob, c_sad,
@@ -173,8 +185,9 @@ def assemble_features_left(cen_cost, cen_aml, c_ncc, c_sob, c_sad,
                            out_dtype: torch.dtype = torch.float32
                            ) -> torch.Tensor:
     """8-channel matching-space volume [C, D, H, W] in ``out_dtype``."""
-    ch = _normalize_stack(cen_cost, cen_aml, c_ncc, c_sob, c_sad, cfg)
-    return torch.stack([c.to(out_dtype) for c in ch], dim=0)
+    with span("features.assemble"):
+        ch = _normalize_stack(cen_cost, cen_aml, c_ncc, c_sob, c_sad, cfg)
+        return torch.stack([c.to(out_dtype) for c in ch], dim=0)
 
 
 def assemble_features_lr(c_cen, c_ncc, c_sob, c_sad, cfg: MatchingConfig,
@@ -184,9 +197,11 @@ def assemble_features_lr(c_cen, c_ncc, c_sob, c_sad, cfg: MatchingConfig,
     the costs re-indexed to the right view, R[d, i, j] = L[d, i, j+d]
     (trimmed volumes; the fill is each volume's [0, 0, 0])."""
     costs = (c_cen, c_ncc, c_sob, c_sad)
-    ch = (_normalize_stack_raw(*costs, cfg)
-          + _normalize_stack_raw(*(M.reindex_planes(c) for c in costs), cfg))
-    return torch.stack([c.to(out_dtype) for c in ch], dim=0)
+    with span("features.assemble"):
+        ch = (_normalize_stack_raw(*costs, cfg)
+              + _normalize_stack_raw(*(M.reindex_planes(c) for c in costs),
+                                     cfg))
+        return torch.stack([c.to(out_dtype) for c in ch], dim=0)
 
 
 def raw_features(iml: torch.Tensor, imr: torch.Tensor, maxdisp: int,
@@ -244,7 +259,8 @@ def ms_features_train(iml: torch.Tensor, imr: torch.Tensor, maxdisp: int,
     ``maxdisp`` and the margins divided by ds_scale. Output
     [C, maxdisp/s, crop_h/s, crop_w/s]."""
     s = cfg.ds_scale
-    iml, imr = _downsample(iml, imr, s)
+    with span("features.downsample"):
+        iml, imr = _downsample(iml, imr, s)
     return ms_features(iml, imr, maxdisp // s, cfg, board_h // s,
                        board_w_left // s, board_w_right // s, left_only,
                        out_dtype)
@@ -258,9 +274,10 @@ def ms_features_test(iml: torch.Tensor, imr: torch.Tensor, maxdisp: int,
     every side and turned into features with 10-px margins, which trims the
     pad back off. Output [C, D/s, H/s, W/s]."""
     s = cfg.ds_scale
-    iml, imr = _downsample(iml, imr, s)
     b = _BORDER
-    iml = torch.nn.functional.pad(iml, (b, b, b, b))
-    imr = torch.nn.functional.pad(imr, (b, b, b, b))
+    with span("features.downsample"):
+        iml, imr = _downsample(iml, imr, s)
+        iml = torch.nn.functional.pad(iml, (b, b, b, b))
+        imr = torch.nn.functional.pad(imr, (b, b, b, b))
     return ms_features(iml, imr, maxdisp // s, cfg, b, b, b, left_only,
                        out_dtype)

@@ -59,11 +59,36 @@ Usage:
     disp = server.predict(iml, imr)               # one frame, blocking
     for d in server.predict_stream(pairs):        # pipelined, in input order
         ...
+
+Where the time goes: serve under ``utils.profiling.trace(logdir)`` and open
+``logdir/trace.json`` (Perfetto or chrome://tracing). Beside the host's ops
+and the device's kernels and copies, on the same clock, it holds the
+program's spans (``msn.*``; ``utils/profiling.py`` lists them): a request is
+a ``server.predict`` (blocking) or ``server.launch`` (a stream frame) with
+``server.pad``, ``server.slot_wait``, ``server.h2d``, ``features`` and its
+matchers, ``regularizer``, ``server.d2h`` and ``server.crop`` inside. With
+no profiler recording a span costs a flag check. A span is recorded only on
+a thread that existed when the profiler started: the stream's fetcher,
+which the stream starts, records none (it launches no device work; its
+waits show as the launching thread's ``server.slot_wait``).
+
+``stats()`` counts since construction:
+  * ``frames``: frames served (blocking and streamed); ``bucket_hits`` the
+    frames of each bucket;
+  * ``warm_buckets``: the buckets ``warmup`` ran;
+  * ``cold_frames``: frames served in a bucket ``warmup`` did not run; the
+    first of each pays cuDNN's choice of plans and the allocator's growth
+    (the JAX server's ``compiles``);
+  * ``slot_waits``, ``slot_wait_s``: stream launches that found every slot
+    of their bucket in flight, and the seconds they blocked until the
+    fetcher released one: nonzero when the launches run ahead of the
+    device by ``depth`` frames.
 """
 from __future__ import annotations
 
 import queue
 import threading
+import time
 from typing import Dict, Iterable, Iterator, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
@@ -76,6 +101,7 @@ from .models.layers import cast_eval_model
 from .ops.features import ms_features_test
 from .parallel import mesh as pm
 from .runtime import DeviceLike, resolve_device
+from .utils.profiling import span
 
 DEFAULT_BUCKETS: Tuple[Tuple[int, int], ...] = (
     (256, 512), (384, 1248), (576, 960))
@@ -175,7 +201,8 @@ class StereoServer:
         # a forward's collectives must not interleave with another's
         self._forward_lock = threading.Lock()
         self._lock = threading.Lock()
-        self._stats = {"frames": 0, "bucket_hits": {}}
+        self._stats = {"frames": 0, "bucket_hits": {}, "cold_frames": 0,
+                       "slot_waits": 0, "slot_wait_s": 0.0}
         self._warm = set()
         self._slots: Dict[Tuple[int, int], "queue.Queue[_Slot]"] = {}
         self._copy_stream = (torch.cuda.Stream(self.device)
@@ -207,18 +234,23 @@ class StereoServer:
         """Device uint8 bucket-shaped pair -> feature volume [C, D, H, W]
         in the compute dtype."""
         m = self.cfg.matching
-        return ms_features_test(iml, imr, self.cfg.model.max_disp, m,
-                                m.left_only, self.dtype)
+        with span("features"):
+            return ms_features_test(iml, imr, self.cfg.model.max_disp, m,
+                                    m.left_only, self.dtype)
 
     @torch.inference_mode()
     def forward(self, iml: torch.Tensor, imr: torch.Tensor) -> torch.Tensor:
         """Device uint8 bucket-shaped pair -> disparity [1, H, W] float32
         (the whole map on every rank of a mesh)."""
         if self.mesh is None:
-            return self.model(self.features(iml, imr)[None])
+            volume = self.features(iml, imr)[None]
+            with span("regularizer"):
+                return self.model(volume)
         with self._forward_lock:
             volume = pm.shard_volume(self.features(iml, imr)[None], self.mesh)
-            return pm.gather_volume(self.model(volume))
+            with span("regularizer"):
+                disp = self.model(volume)
+            return pm.gather_volume(disp)
 
     def warmup(self, shapes: Sequence[Tuple[int, int]] = ()) -> None:
         """Run one zero pair through every configured bucket and through the
@@ -238,20 +270,28 @@ class StereoServer:
     def _count(self, bucket: Tuple[int, int]) -> None:
         with self._lock:
             self._stats["frames"] += 1
+            self._stats["cold_frames"] += bucket not in self._warm
             hits = self._stats["bucket_hits"]
             hits[bucket] = hits.get(bucket, 0) + 1
 
     def predict(self, iml: np.ndarray, imr: np.ndarray) -> np.ndarray:
         """One frame, blocking: uint8 [H, W] pair -> float32 [H, W]
         disparity at the original resolution."""
-        h, w = iml.shape
-        bucket = pick_bucket(h, w, self.buckets, self.cfg.model.encoder_ds)
-        il, ir = pad_to_bucket(iml, imr, bucket)
-        disp = self.forward(torch.from_numpy(il).to(self.device),
-                            torch.from_numpy(ir).to(self.device))[0]
-        out = disp[bucket[0] - h:, :w].cpu().numpy()
-        self._count(bucket)
-        return np.ascontiguousarray(out, dtype=np.float32)
+        with span("server.predict"):
+            h, w = iml.shape
+            with span("server.pad"):
+                bucket = pick_bucket(h, w, self.buckets,
+                                     self.cfg.model.encoder_ds)
+                il, ir = pad_to_bucket(iml, imr, bucket)
+            with span("server.h2d"):
+                il = torch.from_numpy(il).to(self.device)
+                ir = torch.from_numpy(ir).to(self.device)
+            disp = self.forward(il, ir)[0]
+            with span("server.d2h"):
+                out = disp[bucket[0] - h:, :w].cpu().numpy()
+            self._count(bucket)
+            with span("server.crop"):
+                return np.ascontiguousarray(out, dtype=np.float32)
 
     # -- pipelined stream -------------------------------------------------
 
@@ -264,39 +304,59 @@ class StereoServer:
                 pool = self._slots[bucket] = queue.Queue()
                 for _ in range(self.depth):
                     pool.put(_Slot(bucket, self.device.type == "cuda"))
-        return pool.get()
+        try:
+            return pool.get_nowait()
+        except queue.Empty:
+            pass
+        t0 = time.perf_counter()
+        with span("server.slot_wait"):
+            slot = pool.get()
+        waited = time.perf_counter() - t0
+        with self._lock:
+            self._stats["slot_waits"] += 1
+            self._stats["slot_wait_s"] += waited
+        return slot
 
     def _launch(self, iml: np.ndarray, imr: np.ndarray):
         """Pad one frame into a slot and queue its host-to-device copy, its
         forward and its device-to-host copy; returns (slot, copied event or
         None on the CPU, h, w, bucket) without waiting for the device."""
-        h, w = iml.shape
-        bucket = pick_bucket(h, w, self.buckets, self.cfg.model.encoder_ds)
-        il, ir = pad_to_bucket(iml, imr, bucket)
-        slot = self._slot(bucket)
-        try:
-            slot.pair[0].numpy()[...] = il
-            slot.pair[1].numpy()[...] = ir
-            with torch.inference_mode():
-                pair = slot.pair.to(self.device, non_blocking=True)
-                disp = self.forward(pair[0], pair[1])[0]
-                copied = None
-                if self._copy_stream is None:
-                    slot.out.copy_(disp)
-                else:
-                    done = torch.cuda.current_stream(self.device).record_event()
-                    with torch.cuda.stream(self._copy_stream):
-                        self._copy_stream.wait_event(done)
-                        slot.out.copy_(disp, non_blocking=True)
-                        # disp was made on the compute stream: its memory
-                        # must not be reused before this copy has read it
-                        disp.record_stream(self._copy_stream)
-                        copied = self._copy_stream.record_event()
-        except BaseException:
-            self._slots[bucket].put(slot)
-            raise
-        self._count(bucket)
-        return slot, copied, h, w, bucket
+        with span("server.launch"):
+            h, w = iml.shape
+            with span("server.pad"):
+                bucket = pick_bucket(h, w, self.buckets,
+                                     self.cfg.model.encoder_ds)
+                il, ir = pad_to_bucket(iml, imr, bucket)
+            slot = self._slot(bucket)
+            try:
+                with torch.inference_mode():
+                    with span("server.h2d"):
+                        slot.pair[0].numpy()[...] = il
+                        slot.pair[1].numpy()[...] = ir
+                        pair = slot.pair.to(self.device, non_blocking=True)
+                    disp = self.forward(pair[0], pair[1])[0]
+                    with span("server.d2h"):
+                        copied = self._copy_back(slot, disp)
+            except BaseException:
+                self._slots[bucket].put(slot)
+                raise
+            self._count(bucket)
+            return slot, copied, h, w, bucket
+
+    def _copy_back(self, slot: _Slot, disp: torch.Tensor):
+        """Queue the copy of a frame's disparity into its slot; the copy
+        stream's event after it, or None on the CPU (copied already)."""
+        if self._copy_stream is None:
+            slot.out.copy_(disp)
+            return None
+        done = torch.cuda.current_stream(self.device).record_event()
+        with torch.cuda.stream(self._copy_stream):
+            self._copy_stream.wait_event(done)
+            slot.out.copy_(disp, non_blocking=True)
+            # disp was made on the compute stream: its memory must not be
+            # reused before this copy has read it
+            disp.record_stream(self._copy_stream)
+            return self._copy_stream.record_event()
 
     def _finish(self, slot: _Slot, copied, h: int, w: int,
                 bucket: Tuple[int, int]) -> np.ndarray:
@@ -371,4 +431,7 @@ class StereoServer:
         with self._lock:
             return {"frames": self._stats["frames"],
                     "bucket_hits": dict(self._stats["bucket_hits"]),
-                    "warm_buckets": sorted(self._warm)}
+                    "warm_buckets": sorted(self._warm),
+                    "cold_frames": self._stats["cold_frames"],
+                    "slot_waits": self._stats["slot_waits"],
+                    "slot_wait_s": self._stats["slot_wait_s"]}

@@ -1,28 +1,52 @@
-"""Profiling and numerics-debug helpers (counterpart of
+"""Tracing and numerics-debug helpers (counterpart of
 ``msnets_tpu/utils/profiling.py``).
 
-The reference keeps ``torch.autograd.set_detect_anomaly(True)`` on during
-training (main_msnet.py:767); here it is ``debug_nans``, opt-in (anomaly
-mode slows every backward). ``trace`` records ``torch.profiler`` over a
-block and writes a Chrome trace; ``StepTimer`` times steps on the host
-clock (synchronize a GPU inside the block to time its work);
-``device_memory_stats`` reads the CUDA caching allocator's counters.
+``trace`` records ``torch.profiler`` over a block and writes a Chrome
+trace: the host's ops, the program's spans and, on a GPU, the device's
+kernels and copies, all on one clock. ``span`` names a stretch of the
+program in that trace (``msn.<layer>.<part>``); it costs a flag check when
+no profiler records. ``debug_nans`` is autograd's anomaly mode (the
+reference keeps ``torch.autograd.set_detect_anomaly(True)`` on during
+training, main_msnet.py:767; here it is opt-in, since anomaly mode slows
+every backward). ``device_memory_stats`` reads the CUDA caching
+allocator's counters.
+
+The spans, by layer (the first component after ``msn.``):
+  * server: ``server.predict`` (a blocking request) and ``server.launch``
+    (a frame of ``predict_stream``), each the root of a request, with
+    ``server.pad``, ``server.slot_wait``, ``server.h2d``, ``server.d2h``
+    and ``server.crop`` (``serve.py``);
+  * features: ``features`` (the stage) with ``features.downsample``,
+    ``features.census_aml`` (``features.census`` on 16 channels),
+    ``features.ncc``, ``features.zsad``, ``features.sobel_sad`` and
+    ``features.assemble`` (``ops/features.py``);
+  * regularizer: ``regularizer`` (the model when serving),
+    ``regularizer.forward`` and ``regularizer.backward`` (training);
+  * trainer: ``trainer.step`` (the root of a step) with ``trainer.h2d``,
+    ``trainer.loss``, ``trainer.metrics``, ``trainer.allreduce`` (over a
+    mesh) and ``trainer.optimizer`` (``engine/trainer.py``).
+
+A span is recorded on the thread the profiler was started on and on the
+threads that existed then; a thread started inside the profiled block
+(such as ``predict_stream``'s fetcher) sees no profiler and records none.
 """
 from __future__ import annotations
 
 import contextlib
 import os
-import time
-from typing import Dict, Iterator, Optional
+from typing import Dict, Iterator
 
 import torch
+
+_NULL = contextlib.nullcontext()
 
 
 @contextlib.contextmanager
 def trace(logdir: str) -> Iterator["torch.profiler.profile"]:
     """``torch.profiler`` over the block, CUDA activity included when a GPU
     is present; writes ``logdir/trace.json`` (chrome://tracing or Perfetto)
-    and yields the profiler (``key_averages()``)."""
+    and yields the profiler (``key_averages()``). The program's spans are
+    its ``user_annotation`` events named ``msn.*``."""
     from torch.profiler import ProfilerActivity, profile
     acts = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
@@ -33,36 +57,22 @@ def trace(logdir: str) -> Iterator["torch.profiler.profile"]:
     prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
 
 
+def span(name: str):
+    """A context naming a stretch of the program ``msn.<name>`` in the
+    profiler's trace while a profiler records on this thread; otherwise
+    one shared do-nothing context (a flag check: an unconditional
+    ``record_function`` costs ~20 times as much)."""
+    if torch._C._autograd._profiler_enabled():
+        return torch.profiler.record_function("msn." + name)
+    return _NULL
+
+
 @contextlib.contextmanager
 def debug_nans(enable: bool = True) -> Iterator[None]:
     """autograd's anomaly mode with its NaN check: a backward that makes a
     NaN raises and names the forward op that made it."""
     with torch.autograd.set_detect_anomaly(enable, check_nan=True):
         yield
-
-
-class StepTimer:
-    """Wall-clock per-step timing with simple summary statistics."""
-
-    def __init__(self):
-        self.times = []
-        self._t0: Optional[float] = None
-
-    def __enter__(self):
-        self._t0 = time.perf_counter()
-        return self
-
-    def __exit__(self, *exc):
-        self.times.append(time.perf_counter() - self._t0)
-
-    def summary(self) -> Dict[str, float]:
-        if not self.times:
-            return {}
-        ts = sorted(self.times)
-        n = len(ts)
-        return {"mean": sum(ts) / n, "p50": ts[n // 2],
-                "p90": ts[min(int(n * 0.9), n - 1)], "min": ts[0],
-                "max": ts[-1], "steps": n}
 
 
 def device_memory_stats() -> Dict[str, Dict[str, float]]:

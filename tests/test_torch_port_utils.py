@@ -14,7 +14,6 @@ import torch
 from msnets_tpu.models import basic_blocks as JB
 from msnets_tpu.ops import sampling as JSmp
 from msnets_tpu.utils import debug_viz as JV
-from msnets_tpu.utils import profiling as JP
 from msnets_tpu.utils import summary as JS
 from msnets_tpu.models.torch_convert import convert_state_dict
 from msnets_tpu_torch.config import ModelConfig
@@ -63,17 +62,6 @@ def test_debug_nans_names_the_op_that_made_a_nan():
     with P.debug_nans(False):
         torch.sqrt(x).sum().backward()             # no check: NaN gradient
     assert torch.isnan(x.grad).all()
-
-
-def test_step_timer_summary_is_jaxs():
-    times = [0.3, 0.1, 0.2, 0.5, 0.4, 0.25, 0.15]
-    mine, theirs = P.StepTimer(), JP.StepTimer()
-    assert mine.summary() == theirs.summary() == {}
-    with mine:
-        pass
-    assert len(mine.times) == 1 and mine.times[0] >= 0
-    mine.times, theirs.times = list(times), list(times)
-    assert mine.summary() == theirs.summary()
 
 
 def test_device_memory_stats_reads_the_allocator():
