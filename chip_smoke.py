@@ -9,8 +9,8 @@ Phases, each of which fails the run on error:
   1. device     the card's name, power limit and maximum SM clock
                 (nvidia-smi);
   2. build      nvcc builds every kernel of msnets_tpu_torch/csrc/ (census,
-                census_aml, int8_conv3d, and int8_quantize.cu's int8_quantize
-                and int8_absmax), the census kernels again with
+                census_aml, matchers_aml, int8_conv3d, and int8_quantize.cu's
+                int8_quantize and int8_absmax), the census kernels again with
                 -DMSN_PHASES=1 for phase 9 and int8_quantize.cu with each
                 -DMSN_QUANT_ABLATE for phase 20, all at once;
   3. kernel     census_aml against its plain PyTorch version (cost exact, AML
@@ -20,10 +20,16 @@ Phases, each of which fails the run on error:
                 then each kernel's profiler device time (the profiler must
                 see the kernel), its plain version's time and its bound
                 (bytes at HBM rate; popc and exp at 16/clock/SM, the rest
-                at the float32 rate);
+                at the float32 rate); then matchers_aml against its plain
+                version at the serving shape (212x644, D 96, 10-px margins)
+                and the training shape (140x352, D 96, margins 6/96/0), in
+                float32 (channels 0-4 exact, 5-7 atol 1e-6) and bfloat16
+                (one unit in the last place), and its profiler time, plain
+                time and bound at both;
   4. features   a known-disparity pair through ms_features on the card, 8 and
                 16 channels: the census-AML channels (left 4, right 12) must
-                peak at the true disparity;
+                peak at the true disparity; matchers_aml launches once on 8
+                channels and never on 16;
   5. serve      StereoServer with the default configuration (MS-GCNet,
                 max_disp 192, F=32, bfloat16, 8 channels) and seeded random
                 weights answers 3 requests at 256x512 and one at 375x1242;
@@ -206,6 +212,9 @@ Phases, each of which fails the run on error:
                 static on phase 15's grey tree: finite scores, one
                 calibration forward (int8_absmax once a flagged conv: 5),
                 int8_conv3d and int8_quantize 3 times a frame.
+Wherever a phase counts census_aml, matchers_aml must launch as often: the
+two launch together, once an 8-channel sample, and never on the 16-channel
+and raw paths.
 Then a {"kernels": [...]} line, and as the last line
 {"ok": true, "device": {...}}. Without CUDA, or without the
 package beside this file, it exits non-zero and prints no result.
@@ -418,6 +427,75 @@ def phase_kernel(state):
                 f"{t['ms'] / t['bound_ms']:.2f}x the bound [{state['smi']}]")
             if shape == MAIN_SHAPE:
                 state[kernel] = t
+    _matchers_kernel(state, rng)
+
+
+# matchers_aml's shapes: the 384x1248 serving bucket (a 212x644 padded
+# half-resolution pair, 10-px margins) and the train crop (280x704 at half
+# resolution, margins board_h 6, board_w_left 96)
+MATCHERS_SHAPES = [("serve 212x644 D96", 212, 644, 96, (10, 10, 10)),
+                   ("train 140x352 D96", 140, 352, 96, (6, 96, 0))]
+
+
+def _matchers_kernel(state, rng):
+    """matchers_aml against its plain version on the card at
+    MATCHERS_SHAPES (float32 and bfloat16 out), then its device time
+    (``_profiled_ms``), the plain version's time and the bound, in bfloat16
+    as the model reads the volume."""
+    import torch
+    from msnets_tpu_torch.ops.cuda import matchers_aml as MA
+    from msnets_tpu_torch.ops.cuda.census_aml import census_aml
+    worst, timed = 0.0, {}
+    for name, H, W, D, m in MATCHERS_SHAPES:
+        a, b = (torch.from_numpy(rng.integers(0, 256, (H, W), dtype=np.uint8)).cuda()
+                for _ in range(2))
+        cen = census_aml(a, b, D)
+        kw = dict(board_h=m[0], board_w_left=m[1], board_w_right=m[2])
+        for dtype in (torch.float32, torch.bfloat16):
+            got = MA.matchers_aml(a, b, *cen, D, out_dtype=dtype, **kw)
+            ref = MA.matchers_aml_reference(a, b, *cen, D, out_dtype=dtype, **kw)
+            torch.cuda.synchronize()
+            assert got.shape == ref.shape == (8, D, H - 2 * m[0], W - m[1] - m[2])
+            assert torch.equal(got[:5], ref[:5]), f"{name}: a cost channel differs"
+            if dtype == torch.float32:
+                err = (got[5:] - ref[5:]).abs().max().item()
+                worst = max(worst, err)
+                assert err <= AML_ATOL, f"{name}: AML off by {err}"
+            else:
+                err = (got[5:].view(torch.int16).int()
+                       - ref[5:].view(torch.int16).int()).abs().max().item()
+                assert err <= 1, f"{name}: bf16 AML off by {err} ulp"
+            log(f"kernel matchers_aml {name} {dtype}: channels 0-4 exact, "
+                f"AML max|d| {'%.3g' % err if dtype == torch.float32 else '%d ulp' % err}")
+        run = lambda: MA.matchers_aml(a, b, *cen, D, out_dtype=torch.bfloat16, **kw)  # noqa: E731
+        plain = lambda: MA.matchers_aml_reference(  # noqa: E731
+            a, b, *cen, D, out_dtype=torch.bfloat16, **kw)
+        for _ in range(3):
+            run()
+            plain()
+        t = {"ms_events": cuda_time_ms(run, 50), "plain_ms": cuda_time_ms(plain, 5)}
+        t["ms"], t["timed_by"] = _profiled_ms({"k": run}, {"k": "matchers_aml_tile"})["k"]
+        ho, wo = H - 2 * m[0], W - m[1] - m[2]
+        # two images and the trimmed census planes read, the bf16 volume
+        # written; 140 operations a valid 5x5 entry (ZSAD 75, SAD-of-Sobel
+        # 50, NCC 13, the validity selects 2) and 24 an output (d, pixel):
+        # three AMLs and normalizations
+        t["bytes"] = 2 * H * W + 2 * D * ho * wo * 4 + 8 * D * ho * wo * 2
+        t["alu_ops"] = 140 * _valid_entries(H, W, D, 5, m)[1] + 24 * D * ho * wo
+        t["bytes_ms"] = t["bytes"] / HBM_BYTES_PER_S * 1e3
+        t["ops_ms"] = t["alu_ops"] / F32_OPS_PER_S * 1e3
+        t["bound_ms"] = max(t["bytes_ms"], t["ops_ms"])
+        t["bound_by"] = "bytes" if t["bytes_ms"] >= t["ops_ms"] else "operations"
+        log(f"matchers_aml {name}: device {t['ms']:.4f} ms/call ({t['timed_by']}), events "
+            f"{t['ms_events']:.4f} ms/call (host launch included); plain "
+            f"{t['plain_ms']:.3f} ms; bound {t['bound_ms']:.4f} ms by "
+            f"{t['bound_by']}: bytes {t['bytes_ms']:.4f} ms "
+            f"({t['bytes'] / 1e6:.1f} MB), operations {t['ops_ms']:.4f} ms "
+            f"({t['alu_ops'] / 1e9:.2f} G at the float32 rate); "
+            f"{t['ms'] / t['bound_ms']:.2f}x the bound [{state['smi']}]")
+        timed[name] = t
+    state["max_abs_err"]["matchers_aml"] = worst
+    state["matchers_aml"] = timed[MATCHERS_SHAPES[0][0]]
 
 
 PHASE_DEFINES = ("MSN_PHASES=1",)
@@ -474,12 +552,16 @@ def phase_phases(state):
                 f"[{state['smi']}]")
 
 
-def _valid_entries(H: int, W: int, D: int, wsize: int = 11):
+def _valid_entries(H: int, W: int, D: int, wsize: int = 11,
+                   margins=(0, 0, 0)):
     """(valid pixels, valid (d, pixel) entries) of the reference mask: rows
-    and cols [wc, n - wsize + wc), d <= c - wc."""
-    rows, cols = max(0, H - wsize), max(0, W - wsize)
-    per_row = sum(min(D, k) for k in range(1, cols + 1))
-    return rows * cols, rows * per_row
+    and cols [wc, n - wsize + wc), d <= c - wc; inside the volume that the
+    margins (board_h, board_w_left, board_w_right) leave."""
+    bh, bwl, bwr = margins
+    wc = wsize // 2
+    rows = max(0, min(H - bh, H - wsize + wc) - max(bh, wc))
+    cols = range(max(bwl, wc), min(W - bwr, W - wsize + wc))
+    return rows * len(cols), rows * sum(min(D, c - wc + 1) for c in cols)
 
 
 def _time_kernel(kernel: str, H: int, W: int, D: int, rng,
@@ -542,13 +624,17 @@ def phase_features(state):
     base = np.random.default_rng(0).integers(0, 256, (48, 103), dtype=np.uint8)
     L = torch.from_numpy(np.ascontiguousarray(base[:, :96])).cuda()
     R = torch.from_numpy(np.ascontiguousarray(base[:, 7:])).cuda()
+    _reset_counts()
     f = ms_features(L, R, 16, MatchingConfig(), 5, 20, 0, True)
+    assert _counts() == _want(census_aml=1), _counts()
     acc = (f[4].argmax(0)[8:-8, 8:-8] == 7).float().mean().item()
     log(f"features: shape {tuple(f.shape)}, census-AML argmax accuracy "
         f"{acc:.4f} at true disparity 7")
     assert tuple(f.shape) == (8, 16, 38, 76) and bool(torch.isfinite(f).all())
     assert acc > 0.99, acc
+    _reset_counts()
     f = ms_features(L, R, 16, MatchingConfig(num_channels=16), 5, 20, 0, False)
+    assert _counts() == _want(census=1), _counts()
     assert tuple(f.shape) == (16, 16, 38, 76) and bool(torch.isfinite(f).all())
     acc_l = (f[4].argmax(0)[8:-8, 8:-8] == 7).float().mean().item()
     # right pixel j sees left pixel j + 7: keep the columns whose left pixel
@@ -588,9 +674,10 @@ def _counted():
     from msnets_tpu_torch.ops.cuda.int8_conv3d import int8_conv3d
     from msnets_tpu_torch.ops.cuda.int8_quantize import (int8_absmax,
                                                          int8_quantize)
+    from msnets_tpu_torch.ops.cuda.matchers_aml import matchers_aml
     return {"census_aml": census_aml, "census": census,
-            "int8_conv3d": int8_conv3d, "int8_quantize": int8_quantize,
-            "int8_absmax": int8_absmax}
+            "matchers_aml": matchers_aml, "int8_conv3d": int8_conv3d,
+            "int8_quantize": int8_quantize, "int8_absmax": int8_absmax}
 
 
 def _counts():
@@ -601,10 +688,11 @@ def _want(census_aml=0, census=0, int8_conv3d=0, int8_absmax=0):
     """The kernels' launch counts a path must show: each int8 conv
     quantizes its input once (int8_quantize, then the fused int8_conv3d);
     int8_absmax runs once an int8 conv in dynamic mode, never in static
-    mode, and once a flagged conv in a calibration forward."""
+    mode, and once a flagged conv in a calibration forward; matchers_aml
+    launches with census_aml, once an 8-channel sample."""
     return {"census_aml": census_aml, "census": census,
-            "int8_conv3d": int8_conv3d, "int8_quantize": int8_conv3d,
-            "int8_absmax": int8_absmax}
+            "matchers_aml": census_aml, "int8_conv3d": int8_conv3d,
+            "int8_quantize": int8_conv3d, "int8_absmax": int8_absmax}
 
 
 def _reset_counts():
@@ -2181,8 +2269,7 @@ def phase_train_mesh(state):
                 kernel = "census" if TRAIN_MESH_CASES[key][1] == 16 \
                     else "census_aml"
                 per_step = cfg.train.batch_size // shape[0]
-                want = _want()
-                want[kernel] = per_step * TRAIN_MESH_CASES[key][4]
+                want = _want(**{kernel: per_step * TRAIN_MESH_CASES[key][4]})
                 peaks = ", ".join(f"{r['peak_gib']:.3f}" for r in res)
                 log(f"train_mesh {shape} {key} ({world} gloo ranks sharing "
                     f"one card, Config() widths in float32, TF32 off, cuDNN "
@@ -2819,6 +2906,11 @@ def main() -> int:
                        "msnets_tpu/ops/pallas/census_aml_pallas.py:94"),
         "census": ("msnets_tpu_torch/csrc/census.cu",
                    "msnets_tpu/ops/pallas/census_pallas.py:79"),
+        # no Pallas kernel: the XLA matchers, AMLs and assembly
+        "matchers_aml": ("msnets_tpu_torch/csrc/matchers_aml.cu",
+                         "msnets_tpu/ops/matchers.py (ncc_nister, zsad, "
+                         "sadsob, extract_aml; XLA), "
+                         "msnets_tpu/ops/features.py (_normalize_stack)"),
         # no Pallas kernels: the XLA int8 convolutions of the quantized
         # lowerings, and _quant_act, which quantizes their inputs
         "int8_conv3d": ("msnets_tpu_torch/csrc/int8_conv3d.cu",

@@ -6,11 +6,12 @@ ZSAD 5x5, SAD-of-Sobel 5x5), their clip normalizations and AML likelihoods,
 margins trimmed. Three variants, chosen by ``MatchingConfig``:
 
 * 8 channels (``num_channels=8``, the default): the left view. Channels 0
-  and 4 (census cost and census AML) come fused from ``ops.cuda.census_aml``.
+  and 4 (census cost and census AML) come fused from ``ops.cuda.census_aml``,
+  the other six and the assembled volume from ``ops.cuda.matchers_aml``.
 * 16 channels (``num_channels=16``): the 8 left channels, then the same 8
   computed on each cost volume re-indexed to the right view,
   R[d, i, j] = L[d, i, j+d]. The re-index needs the raw census volume, which
-  comes from ``ops.cuda.census``.
+  comes from ``ops.cuda.census``; the other matchers are plain PyTorch.
 * raw (``features_mode="raw"``): 2 channels, L(x)/255 and R(x-d)/255, the
   no-matching ablation volume; no matcher runs.
 
@@ -24,8 +25,9 @@ full-resolution pair, downsampled and bordered by 10 px) and
 trainer calls it once a sample).
 
 Each step is a span of the profiler's trace (``utils.profiling.span``):
-``features.downsample``, ``features.census_aml`` (``features.census`` on 16
-channels), ``features.ncc``, ``features.zsad``, ``features.sobel_sad`` and
+``features.downsample``, then on 8 channels ``features.census_aml`` and
+``features.matchers``, on 16 channels ``features.census``,
+``features.ncc``, ``features.zsad``, ``features.sobel_sad`` and
 ``features.assemble``; the callers name the stage ``features``.
 
 Layout: the volume is returned as [C, D, H, W], the reference layout and the
@@ -56,6 +58,7 @@ from ..utils.profiling import span
 from . import matchers as M
 from .cuda.census import census
 from .cuda.census_aml import census_aml
+from .cuda.matchers_aml import matchers_aml, normalize_stack, trim_planes
 
 _BORDER = 10     # test-time pad that keeps sentinel values off the image
 
@@ -118,32 +121,18 @@ def downsample_half(img: torch.Tensor) -> torch.Tensor:
 
 def compute_costs(iml: torch.Tensor, imr: torch.Tensor, maxdisp: int,
                   cfg: MatchingConfig, board_h: int = 10,
-                  board_w_left: int = 10, board_w_right: int = 0,
-                  left_only: bool = True) -> Tuple[torch.Tensor, ...]:
-    """The matching costs with margins trimmed, all [D, H', W'].
-
-    ``left_only``: ``(census_cost, census_aml, ncc, sobel_sad, zsad)``, the
-    two census channels already normalized (one ``census_aml`` launch).
-    Otherwise ``(census, ncc, sobel_sad, zsad)`` with the raw census Hamming
-    volume (one ``census`` launch), which the right view re-indexes. The
-    other costs are raw, for ``_normalize_stack``."""
-    H, W = iml.shape
-    h_end = H - board_h if board_h > 0 else H
-    w_end = W - board_w_right if board_w_right > 0 else W
-
-    def trim_dhw(v):
-        return v[:, board_h:h_end, board_w_left:w_end]
-
+                  board_w_left: int = 10, board_w_right: int = 0
+                  ) -> Tuple[torch.Tensor, ...]:
+    """The 16-channel stage's raw matching costs with margins trimmed, all
+    [D, H', W']: ``(census, ncc, sobel_sad, zsad)``, the census Hamming
+    volume from one ``census`` launch, which the right view re-indexes."""
     def trim_hwd(v):
-        return trim_dhw(v.permute(2, 0, 1))
+        return trim_planes(v.permute(2, 0, 1), board_h, board_w_left,
+                           board_w_right)
 
-    if left_only:
-        with span("features.census_aml"):
-            cen = tuple(trim_dhw(v) for v in census_aml(
-                iml, imr, maxdisp, cfg.censw, cfg.cens_sigma))
-    else:
-        with span("features.census"):
-            cen = (trim_dhw(census(iml, imr, maxdisp, cfg.censw)),)
+    with span("features.census"):
+        c_cen = trim_planes(census(iml, imr, maxdisp, cfg.censw), board_h,
+                            board_w_left, board_w_right)
     with span("features.ncc"):
         c_ncc = trim_hwd(M.ncc_nister(iml, imr, maxdisp, cfg.nccw))
     with span("features.zsad"):
@@ -151,43 +140,31 @@ def compute_costs(iml: torch.Tensor, imr: torch.Tensor, maxdisp: int,
     with span("features.sobel_sad"):
         c_sob = trim_hwd(M.sadsob(M.sobel(iml), M.sobel(imr), maxdisp,
                                   cfg.sobelw))
-    return cen + (c_ncc, c_sob, c_sad)
-
-
-def _normalize_stack(cen_cost, cen_aml, c_ncc, c_sob, c_sad,
-                     cfg: MatchingConfig) -> List[torch.Tensor]:
-    """The 8 channel planes [D, H, W] in reference order: four normalized
-    costs, then four AML likelihoods (over D, dim 0)."""
-    t13 = 2.0 ** 13
-    return [
-        cen_cost,
-        (1.0 + torch.clamp(c_ncc, -1.0, 1.0)) / 2.0,
-        M._div_const(torch.clamp(c_sob, 0.0, t13), t13),
-        M._div_const(torch.clamp(c_sad, 0.0, t13), t13),
-        cen_aml,
-        M.extract_aml(c_ncc, cfg.ncc_sigma, dim=0),
-        M.extract_aml(c_sob, cfg.sad_sigma, dim=0),   # sad_sigma on purpose
-        M.extract_aml(c_sad, cfg.sad_sigma, dim=0),
-    ]
+    return c_cen, c_ncc, c_sob, c_sad
 
 
 def _normalize_stack_raw(c_cen, c_ncc, c_sob, c_sad,
                          cfg: MatchingConfig) -> List[torch.Tensor]:
-    """``_normalize_stack`` from the raw census volume: its clip/120 and
+    """``normalize_stack`` from the raw census volume: its clip/120 and
     its AML computed here in torch, as the JAX ``_normalize_stack`` does."""
-    return _normalize_stack(
+    return normalize_stack(
         M._div_const(torch.clamp(c_cen, 0.0, 120.0), 120.0),
-        M.extract_aml(c_cen, cfg.cens_sigma, dim=0), c_ncc, c_sob, c_sad, cfg)
+        M.extract_aml(c_cen, cfg.cens_sigma, dim=0), c_ncc, c_sob, c_sad,
+        cfg.ncc_sigma, cfg.sad_sigma)
 
 
-def assemble_features_left(cen_cost, cen_aml, c_ncc, c_sob, c_sad,
-                           cfg: MatchingConfig,
-                           out_dtype: torch.dtype = torch.float32
-                           ) -> torch.Tensor:
-    """8-channel matching-space volume [C, D, H, W] in ``out_dtype``."""
-    with span("features.assemble"):
-        ch = _normalize_stack(cen_cost, cen_aml, c_ncc, c_sob, c_sad, cfg)
-        return torch.stack([c.to(out_dtype) for c in ch], dim=0)
+def features_left(iml: torch.Tensor, imr: torch.Tensor, maxdisp: int,
+                  cfg: MatchingConfig, board_h: int, board_w_left: int,
+                  board_w_right: int = 0,
+                  out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """8-channel matching-space volume [C, D, H', W'] in ``out_dtype``: the
+    census channels from ``census_aml``, the rest from ``matchers_aml``."""
+    with span("features.census_aml"):
+        cen = census_aml(iml, imr, maxdisp, cfg.censw, cfg.cens_sigma)
+    with span("features.matchers"):
+        return matchers_aml(iml, imr, *cen, maxdisp, cfg.nccw, cfg.sadw,
+                            cfg.sobelw, cfg.ncc_sigma, cfg.sad_sigma,
+                            board_h, board_w_left, board_w_right, out_dtype)
 
 
 def assemble_features_lr(c_cen, c_ncc, c_sob, c_sad, cfg: MatchingConfig,
@@ -235,10 +212,11 @@ def ms_features(iml: torch.Tensor, imr: torch.Tensor, maxdisp: int,
     if cfg.features_mode == "raw":
         return raw_features(iml, imr, maxdisp, board_h, board_w_left,
                             board_w_right, out_dtype)
-    costs = compute_costs(iml, imr, maxdisp, cfg, board_h, board_w_left,
-                          board_w_right, left_only)
     if left_only:
-        return assemble_features_left(*costs, cfg, out_dtype)
+        return features_left(iml, imr, maxdisp, cfg, board_h, board_w_left,
+                             board_w_right, out_dtype)
+    costs = compute_costs(iml, imr, maxdisp, cfg, board_h, board_w_left,
+                          board_w_right)
     return assemble_features_lr(*costs, cfg, out_dtype)
 
 

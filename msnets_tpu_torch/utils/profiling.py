@@ -16,10 +16,10 @@ The spans, by layer (the first component after ``msn.``):
     (a frame of ``predict_stream``), each the root of a request, with
     ``server.pad``, ``server.slot_wait``, ``server.h2d``, ``server.d2h``
     and ``server.crop`` (``serve.py``);
-  * features: ``features`` (the stage) with ``features.downsample``,
-    ``features.census_aml`` (``features.census`` on 16 channels),
-    ``features.ncc``, ``features.zsad``, ``features.sobel_sad`` and
-    ``features.assemble`` (``ops/features.py``);
+  * features: ``features`` (the stage) with ``features.downsample``, then
+    on 8 channels ``features.census_aml`` and ``features.matchers``, on 16
+    channels ``features.census``, ``features.ncc``, ``features.zsad``,
+    ``features.sobel_sad`` and ``features.assemble`` (``ops/features.py``);
   * regularizer: ``regularizer`` (the model when serving),
     ``regularizer.forward`` and ``regularizer.backward`` (training);
   * trainer: ``trainer.step`` (the root of a step) with ``trainer.h2d``,

@@ -1,5 +1,5 @@
-"""The port on the GPU: the census, census_aml, int8_absmax, int8_quantize
-and int8_conv3d kernels against their plain PyTorch versions, and the feature
+"""The port on the GPU: the census, census_aml, matchers_aml, int8_absmax,
+int8_quantize and int8_conv3d kernels against their plain PyTorch versions, and the feature
 stage, the server (8-channel, 16-channel and raw variants, ``predict`` and
 ``predict_stream``; MS-PSMNet), the train
 step (MS-GCNet; MS-PSMNet with and without remat), the checkpoint round trip
@@ -27,6 +27,8 @@ from msnets_tpu_torch.models import MSGCNet, MSPSMNet
 from msnets_tpu_torch.ops.cuda.census import census, census_reference
 from msnets_tpu_torch.ops.cuda.census_aml import (census_aml,
                                                   census_aml_reference)
+from msnets_tpu_torch.ops.cuda.matchers_aml import (matchers_aml,
+                                                    matchers_aml_reference)
 from msnets_tpu_torch.ops.features import ms_features_test
 from msnets_tpu_torch.runtime import fp32_reference
 
@@ -87,30 +89,89 @@ def test_census_aml_kernel_rejects_mixed_devices(cuda):
         census_aml(a.to(cuda).t(), b.to(cuda).t(), 8)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("H,W,ndisp,margins,flat", [
+    (212, 644, 96, (10, 10, 10), False),   # serving path, 384x1248 bucket
+    (148, 276, 96, (10, 10, 10), False),   # serving path, 256x512 bucket
+    (140, 352, 96, (6, 96, 0), False),     # train path, 280x704 crop
+    (45, 131, 40, (5, 6, 3), False),       # tiles and warps divide nothing
+    (37, 301, 200, (0, 0, 0), False),      # costs past the kept ones
+    (4, 40, 8, (0, 0, 0), False),          # H below the 5x5 window
+    (40, 4, 8, (0, 0, 0), False),          # W below the 5x5 window
+    (20, 6, 8, (0, 0, 0), False),          # one valid 5x5 column
+    (12, 9, 20, (0, 0, 0), False),         # ndisp > W
+    (16, 40, 8, (0, 0, 0), True),          # flat: NCC's cost-1 rule
+])
+def test_matchers_aml_kernel_matches_plain(cuda, H, W, ndisp, margins, flat,
+                                           dtype):
+    a, b = (torch.from_numpy(x).to(cuda) for x in _pair((H, W), H * W))
+    if flat:
+        a, b = torch.full_like(a, 77), torch.full_like(b, 90)
+    cen = census_aml(a, b, ndisp)
+    before = matchers_aml.launches
+    got = matchers_aml(a, b, *cen, ndisp, board_h=margins[0],
+                       board_w_left=margins[1], board_w_right=margins[2],
+                       out_dtype=dtype)
+    assert matchers_aml.launches == before + 1
+    ref = matchers_aml_reference(a, b, *cen, ndisp, board_h=margins[0],
+                                 board_w_left=margins[1],
+                                 board_w_right=margins[2], out_dtype=dtype)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == ref.shape == (
+        8, ndisp, H - 2 * margins[0], W - margins[1] - margins[2])
+    # the costs' channels are exact; the AMLs differ in the order of the sum
+    # over d only: 1e-6 in float32, one unit in the last place in bfloat16
+    # (every value is >= 0, so bit patterns order as the values do)
+    assert torch.equal(got[:5], ref[:5])
+    if dtype == torch.float32:
+        assert (got[5:] - ref[5:]).abs().max().item() <= 1e-6
+    else:
+        ulps = (got[5:].view(torch.int16).int()
+                - ref[5:].view(torch.int16).int()).abs().max().item()
+        assert ulps <= 1, ulps
+    if flat:
+        assert bool((got[1] == 1.0).all())
+
+
+def test_matchers_aml_kernel_rejects_what_it_does_not_take(cuda):
+    a, b = (torch.from_numpy(x).to(cuda) for x in _pair((20, 40), 0))
+    cen = census_aml(a, b, 8)
+    with pytest.raises(ValueError):                       # mixed devices
+        matchers_aml(a, b.cpu(), *cen, 8)
+    with pytest.raises(ValueError):                       # not contiguous
+        matchers_aml(a.t().contiguous().t(), b, *cen, 8)
+    with pytest.raises(ValueError):                       # other windows
+        matchers_aml(a, b, *cen, 8, nccw=5)
+    with pytest.raises(ValueError):
+        matchers_aml(a, b, *cen, 8, out_dtype=torch.float16)
+
+
 def test_ms_features_on_the_card_match_the_cpu(cuda):
     a, b = _pair((64, 128), 7)
-    before = census_aml.launches
+    before = (census_aml.launches, matchers_aml.launches)
     got = ms_features_test(torch.from_numpy(a).to(cuda),
                            torch.from_numpy(b).to(cuda), 32, MatchingConfig())
-    assert census_aml.launches == before + 1
+    assert (census_aml.launches, matchers_aml.launches) == (
+        before[0] + 1, before[1] + 1)
     ref = ms_features_test(torch.from_numpy(a), torch.from_numpy(b), 32,
                            MatchingConfig())
     err = (got.cpu() - ref).abs().amax(dim=(1, 2, 3))
-    # the census channels (0, 4) come from the kernel: exact / sum order;
-    # the others are the same torch code, whose CUDA rsqrt, exp and
-    # reductions round differently from the CPU's: held at the tolerance
-    # of the port-against-JAX feature test
+    # the census channels (0, 4) come from census_aml: exact / sum order;
+    # the others from matchers_aml, whose CUDA rsqrt, exp and sums round
+    # differently from the CPU's: held at the tolerance of the
+    # port-against-JAX feature test
     assert err[0].item() == 0.0 and err[4].item() <= 1e-6, err
     assert err.max().item() <= 5e-6, err
 
 
-VARIANTS = {"8ch": ({}, (1, 0)), "16ch": ({"num_channels": 16}, (0, 1)),
-            "raw": ({"features_mode": "raw"}, (0, 0))}
+VARIANTS = {"8ch": ({}, (1, 0, 1)), "16ch": ({"num_channels": 16}, (0, 1, 0)),
+            "raw": ({"features_mode": "raw"}, (0, 0, 0))}
 
 
 @pytest.mark.parametrize("variant", list(VARIANTS))
 def test_server_on_the_card_matches_the_cpu(cuda, variant):
-    fields, (n_aml, n_census) = VARIANTS[variant]
+    fields, launches = VARIANTS[variant]
     matching = MatchingConfig(**fields)
     cfg = Config(matching=matching,
                  model=ModelConfig(max_disp=32, base_filters=8,
@@ -121,10 +182,11 @@ def test_server_on_the_card_matches_the_cpu(cuda, variant):
     a, b = _pair((60, 120), 0)
     with fp32_reference():
         srv = StereoServer(cfg, sd, device=cuda)
-        before = (census_aml.launches, census.launches)
+        before = (census_aml.launches, census.launches,
+                  matchers_aml.launches)
         got = srv.predict(a, b)
-        assert (census_aml.launches - before[0],
-                census.launches - before[1]) == (n_aml, n_census)
+        assert (census_aml.launches - before[0], census.launches - before[1],
+                matchers_aml.launches - before[2]) == launches
     ref = StereoServer(cfg, sd, device="cpu").predict(a, b)
     assert got.shape == ref.shape == (60, 120)
     np.testing.assert_allclose(got, ref, atol=2e-3)
@@ -168,10 +230,11 @@ def test_census_kernel_rejects_mixed_devices(cuda):
 def test_16ch_and_raw_features_on_the_card_match_the_cpu(cuda):
     a, b = _pair((64, 128), 7)
     cfg = MatchingConfig(num_channels=16)
-    before = (census_aml.launches, census.launches)
+    before = (census_aml.launches, census.launches, matchers_aml.launches)
     got = ms_features_test(torch.from_numpy(a).to(cuda),
                            torch.from_numpy(b).to(cuda), 32, cfg, False)
-    assert (census_aml.launches, census.launches) == (before[0], before[1] + 1)
+    assert (census_aml.launches, census.launches, matchers_aml.launches) == (
+        before[0], before[1] + 1, before[2])
     ref = ms_features_test(torch.from_numpy(a), torch.from_numpy(b), 32, cfg,
                            False)
     err = (got.cpu() - ref).abs().amax(dim=(1, 2, 3))
@@ -182,6 +245,7 @@ def test_16ch_and_raw_features_on_the_card_match_the_cpu(cuda):
     got = ms_features_test(torch.from_numpy(a).to(cuda),
                            torch.from_numpy(b).to(cuda), 32, raw, True,
                            torch.bfloat16)
+    assert matchers_aml.launches == before[2]
     ref = ms_features_test(torch.from_numpy(a), torch.from_numpy(b), 32, raw,
                            True, torch.bfloat16)
     assert torch.equal(got.cpu(), ref)
@@ -222,11 +286,13 @@ def test_train_step_on_the_card_matches_the_cpu(cuda, channels, batch, n_aml,
     with fp32_reference():
         gpu = Trainer(cfg, device=cuda, seed=3)
         cpu = Trainer(cfg, device="cpu", seed=3)
-        before = (census_aml.launches, census.launches)
+        before = (census_aml.launches, census.launches,
+                  matchers_aml.launches)
         mg, dg = gpu.step_fn(*geom)(b["iml"], b["imr"], b["disp"], 1e-3)
         torch.cuda.synchronize()
-        assert (census_aml.launches - before[0],
-                census.launches - before[1]) == (n_aml, n_census)
+        # census_aml and matchers_aml launch together, once an 8-ch sample
+        assert (census_aml.launches - before[0], census.launches - before[1],
+                matchers_aml.launches - before[2]) == (n_aml, n_census, n_aml)
         mc, dc = cpu.step_fn(*geom)(b["iml"], b["imr"], b["disp"], 1e-3)
     assert float(mg["loss"]) == pytest.approx(float(mc["loss"]), rel=1e-4)
     np.testing.assert_allclose(dg.cpu().numpy(), dc.numpy(), atol=2e-3)

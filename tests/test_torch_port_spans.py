@@ -82,8 +82,7 @@ def _leaf(*names):
 
 
 MATCHERS = {"8ch": _leaf("features.downsample", "features.census_aml",
-                         "features.ncc", "features.zsad",
-                         "features.sobel_sad", "features.assemble"),
+                         "features.matchers"),
             "16ch": _leaf("features.downsample", "features.census",
                           "features.ncc", "features.zsad",
                           "features.sobel_sad", "features.assemble"),
