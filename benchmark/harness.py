@@ -6,9 +6,13 @@ cell the first steps that the check follows), the measured window of
 ``seconds``, with ``trace`` a profiled sub-window and the per-layer
 probes after it, then the correctness check against the plain reference
 once the program's state is freed. Everything a cell is made of is found
-by name: ``configs/<config>.json``, ``traffic/<mix>.json``,
-``checks/<cell>.json`` and ``metrics/<metric>.json`` (which names its
-reader in ``readers/``).
+by name: ``configs/<config>.json`` (whose ``"reference"`` names the
+configuration's reference system in ``reference/``, which the weights, the
+FLOPs, the train crops' margins and the check take the model from),
+``traffic/<mix>.json``, ``checks/<cell>.json`` and
+``metrics/<metric>.json`` (which names its reader in ``readers/``). A cell
+on several cards runs one rank process a card (``ranks.py``), each
+calling ``run_cell`` with its ``mesh``.
 """
 from __future__ import annotations
 
@@ -31,12 +35,12 @@ from typing import Callable, Dict, List, Optional
 import numpy as np
 import torch
 
-from . import loads, weights
+from . import loads, reference, weights
 from .counts import flops as FL
 from .counts import kernels as KC
+from .loads import bucket_of
+from .ranks import READY
 from .reference import control as RC
-from .reference import features as RF
-from .reference import models as RM
 from .reference import train as RT
 
 BENCH = Path(__file__).resolve().parent
@@ -81,52 +85,47 @@ def load_cell(name: str, spec: Optional[dict] = None) -> Cell:
     def mine(metrics):
         return [m for m in metrics if name in m.get("workloads", [name])]
 
-    return Cell(name, _json(ROOT / conf["file"]), loads.load(w["traffic"]),
-                w["chips"], mine(spec["end_to_end"]), mine(spec["per_layer"]),
+    mix = loads.load(w["traffic"])
+    if math.prod(mix.get("mesh", [1])) != w["chips"]:
+        raise ValueError(f"{name}: the mix's mesh {mix.get('mesh')} does "
+                         f"not lay out its {w['chips']} chips")
+    return Cell(name, _json(ROOT / conf["file"]), mix, w["chips"],
+                mine(spec["end_to_end"]), mine(spec["per_layer"]),
                 _json(BENCH / "checks" / f"{name}.json"))
 
 
+PORT_SECTIONS = ("model", "matching")
+
+
 def port_config(cell: Cell, **model):
-    """The port's ``Config`` of the cell: the configuration's model,
-    matching and train settings, the mix's crop and batch."""
+    """The port's ``Config`` of the cell: the configuration's model and
+    matching settings, its train settings with the mix's crop and (global)
+    batch."""
     from msnets_tpu_torch.config import Config
     c, mix = cell.config, cell.mix
     train = dict(c.get("train", {}))
     if cell.kind == "train":
         train.update(crop_height=mix["crop"][0], crop_width=mix["crop"][1],
                      batch_size=mix["batch"])
-    return Config.from_json(json.dumps({
-        "model": {**c["model"], **model}, "matching": c["matching"],
-        "train": train}))
+    doc = {k: c[k] for k in PORT_SECTIONS if k in c}
+    doc["model"] = {**doc["model"], **model}
+    return Config.from_json(json.dumps({**doc, "train": train}))
 
 
-def bucket_of(h: int, w: int, multiple: int):
-    return (h + (-h) % multiple, w + (-w) % multiple)
-
-
-def census_launch_shape(cell: Cell):
-    """[H, W, D] of each ``census_aml`` launch of the cell: the half-res
-    bucket with its 10-px border when serving, the half-res crop with its
-    margins in training."""
-    m, mc = cell.config["matching"], cell.config["model"]
-    s, D = m["ds_scale"], mc["max_disp"] // m["ds_scale"]
-    if cell.kind == "train":
-        ch, cw = cell.mix["crop"]
-        return ((ch + 2 * m["board_h"]) // s, (cw + mc["max_disp"]) // s, D)
-    (bh, bw), = {bucket_of(h, w, mc["encoder_ds"])
-                 for h, w, _ in cell.mix["sizes"]}
-    return (bh // s + 2 * RF.BORDER, bw // s + 2 * RF.BORDER, D)
+def train_margins(cell: Cell):
+    """(board_h, board_w_left, board_w_right) of the cell's train crops."""
+    return reference.system_class(cell.config).train_margins(cell.config)
 
 
 def flops_per_item(cell: Cell) -> float:
-    """Model FLOPs of one served pair or one train step."""
-    mc, m = cell.config["model"], cell.config["matching"]
+    """Model FLOPs of one served pair or one (global) train step."""
+    channels = cell.mix.get("channels", 1)
     if cell.kind == "train":
-        return FL.train_step_flops(mc, m, cell.mix["batch"],
-                                   tuple(cell.mix["crop"]))
-    (hw,), = [{bucket_of(h, w, mc["encoder_ds"])
+        return FL.train_step_flops(cell.config, cell.mix["batch"],
+                                   tuple(cell.mix["crop"]), channels)
+    (hw,), = [{bucket_of(h, w, cell.config["model"]["encoder_ds"])
                for h, w, _ in cell.mix["sizes"]}]
-    return FL.forward_flops(mc, m, 1, hw)
+    return FL.forward_flops(cell.config, hw, channels)
 
 
 # ---------------------------------------------------------------------------
@@ -208,8 +207,8 @@ class ServeSUT:
                   "quant_scope": "all"} if variant == "int8" else {})
         self.cell, self.device = cell, torch.device(device)
         self.cfg = port_config(cell, **extra)
-        self.state_dict = weights.make(cell.config["model"], seed, self.device)
-        self.traffic = loads.make(cell.mix, seed, cell.config)
+        self.state_dict = weights.make(cell.config, seed, self.device)
+        self.traffic = loads.make(cell.mix, seed)
         self.server = StereoServer(self.cfg, _clone(self.state_dict),
                                    device=self.device,
                                    depth=cell.mix.get("depth", 2))
@@ -280,7 +279,7 @@ class ServeSUT:
         (``server.model`` over that volume)."""
         mc = self.cell.config["model"]
         l, r = self.traffic.pair(0)
-        l, r = RF.pad_to_bucket(l, r, mc["encoder_ds"])
+        l, r = loads.pad_to_bucket(l, r, mc["encoder_ds"])
         il = torch.from_numpy(l).to(self.device)
         ir = torch.from_numpy(r).to(self.device)
         with torch.inference_mode():
@@ -297,16 +296,41 @@ class TrainSUT:
     """``Trainer`` of the cell, loaded with the seed's weights, driven by
     ``step_fn`` as ``train_epoch`` drives it (each step's metrics read as
     floats). Its first ``checked_steps`` run in set-up and are the ones
-    the check follows."""
+    the check follows.
 
-    def __init__(self, cell: Cell, seed: int, device, variant=None):
+    With a ``mesh`` (``ranks.join``) it is one rank of the step over the
+    mesh: ``Trainer(mesh=)``, fed this rank's share of each global batch
+    as the port's mesh training takes it (micro-batch k is rows
+    [k m, (k + 1) m) of every data index's share, m = batch / (data x
+    grad_accum)). Every rank takes the same number of steps: a window of
+    ``seconds`` is as many steps as rank 0's step time, measured in set-up
+    and broadcast once, fits into it, so no collective of the harness's
+    runs inside a window.
+
+    A mix with ``"dispatch_ahead_s"`` feeds the step as a prefetching
+    loader does (each batch copied to the card from page-locked memory
+    without a wait, in the checked steps too) and reads each step's
+    metrics behind it: copied to the host after the step, read once that
+    step has ended, at most that many seconds of steps unread. The card
+    keeps working through a stall of the host. Its window ends as a
+    dispatching loop has to: when the time is up (or the fixed count is
+    sent) nothing more is sent, all that was sent is waited for, and the
+    clock is read after that wait; its step time for the count is taken
+    from ``PROBE_STEPS`` such steps at the end of set-up."""
+
+    PROBE_STEPS = 16
+
+    def __init__(self, cell: Cell, seed: int, device, variant=None,
+                 mesh=None):
         from msnets_tpu_torch.engine import Trainer
-        self.cell, self.device = cell, torch.device(device)
+        self.cell, self.device, self.mesh = cell, torch.device(device), mesh
         self.cfg = port_config(cell)
-        self.state_dict = weights.make(cell.config["model"], seed, self.device)
-        self.traffic = loads.make(cell.mix, seed, cell.config)
-        self.trainer = Trainer(self.cfg, device=self.device)
+        self.state_dict = weights.make(cell.config, seed, self.device)
+        self.traffic = loads.make(cell.mix, seed, train_margins(cell))
+        self.trainer = Trainer(self.cfg, device=self.device, mesh=mesh)
         self.trainer.model.load_state_dict(_clone(self.state_dict))
+        self.rows = self._rows()
+        self.batches = [self._share(b) for b in self.traffic.batches]
         b = self.traffic.batches[0]
         self.fn = self.trainer.step_fn(b["board_h"], b["board_w_left"],
                                        b["board_w_right"])
@@ -314,25 +338,96 @@ class TrainSUT:
         self.watch = Stopwatch(self.device)
         self.readings: Dict = {}
         self.variant = variant
+        self.step_s = 0.0
+        self.ahead_s = cell.mix.get("dispatch_ahead_s")
+        self.pinned = None
+        self.next = cell.mix["checked_steps"]
+
+    def _rows(self):
+        """This rank's rows of a global batch (all of them alone)."""
+        batch = self.cell.mix["batch"]
+        if self.mesh is None:
+            return slice(0, batch)
+        data, d = self.mesh.size("data"), self.mesh.index("data")
+        accum = self.cfg.train.grad_accum
+        m = batch // (data * accum)
+        return [r for k in range(accum)
+                for r in range((k * data + d) * m, (k * data + d + 1) * m)]
+
+    def _share(self, b: dict) -> dict:
+        if self.mesh is None:
+            return b
+        return dict(b, **{k: np.ascontiguousarray(b[k][self.rows])
+                          for k in ("iml", "imr", "disp")})
+
+    def _feed(self, i: int):
+        """Step ``i``'s crops and targets on the card, copied from
+        page-locked memory without a wait (``dispatch_ahead_s``)."""
+        k = i % len(self.batches)
+        if self.pinned is None:
+            cuda = self.device.type == "cuda"
+            self.pinned = [[torch.from_numpy(b[f]).pin_memory() if cuda
+                            else torch.from_numpy(b[f])
+                            for f in ("iml", "imr", "disp")]
+                           for b in self.batches]
+        return [t.to(self.device, non_blocking=True) for t in self.pinned[k]]
+
+    def _dispatch(self, i: int):
+        """Send step ``i``; its metrics come back later (``_await``)."""
+        metrics, self.last_disp = self.fn(*self._feed(i), self.lr)
+        keys = sorted(metrics)
+        vals = torch.stack([metrics[k].float() for k in keys])
+        if self.device.type != "cuda":
+            return keys, vals, None
+        host = torch.empty(vals.shape, dtype=vals.dtype, pin_memory=True)
+        host.copy_(vals, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record()
+        return keys, host, done
+
+    @staticmethod
+    def _await(sent) -> Dict[str, float]:
+        """The metrics of a step sent by ``_dispatch``, once it has ended
+        (a wait for that step alone, not for those sent after it)."""
+        keys, host, done = sent
+        if done is not None:
+            done.synchronize()
+        return dict(zip(keys, host.tolist()))
 
     def _step(self, i: int) -> Dict[str, float]:
-        b = self.traffic.batches[i % len(self.traffic.batches)]
+        if self.ahead_s is not None:
+            return self._await(self._dispatch(i))
+        b = self.batches[i % len(self.batches)]
         metrics, self.last_disp = self.fn(b["iml"], b["imr"], b["disp"],
                                           self.lr)
         return {k: float(v) for k, v in metrics.items()}
 
+    def _global_disp(self) -> torch.Tensor:
+        """The step's disparity of the whole global batch: each data
+        index's share, summed into its rows over the ranks."""
+        disp = self.last_disp.float()
+        if self.mesh is None:
+            return disp
+        from msnets_tpu_torch.parallel import mesh as pm
+        out = disp.new_zeros((self.cell.mix["batch"],) + disp.shape[1:])
+        if self.mesh.index("spatial") == 0 and self.mesh.index("disp") == 0:
+            out[self.rows] = disp
+        return pm.all_reduce_sum(out, self.mesh.group)
+
     def warmup(self) -> None:
         """The checked steps: each step's loss, each parameter's first
         gradient as Adam holds it (its first moment over 1 - beta1) and its
-        change after the last."""
+        change after the last; then the step time (rank 0's, on a mesh)."""
         tr = self.trainer
         named = dict(tr.model.named_parameters())
         start = {k: p.detach().double().clone() for k, p in named.items()}
-        losses = []
+        losses, times = [], []
         for i in range(self.cell.mix["checked_steps"]):
+            t = time.perf_counter()
             losses.append(self._step(i)["loss"])
+            times.append(time.perf_counter() - t)
             if i == 0:
-                disp = self.last_disp.float().cpu()
+                disp = self._global_disp().cpu()
                 beta1 = tr.optimizer.param_groups[0]["betas"][0]
                 grad = {}
                 for k, p in named.items():
@@ -343,13 +438,27 @@ class TrainSUT:
                   for k, p in named.items()}
         self.readings = {"loss": losses, "grad": grad, "change": change,
                          "disp": disp}
+        self.step_s = statistics.median(times[1:] or times)
+        if self.ahead_s is not None:
+            probe = self._ahead(self.next, self.PROBE_STEPS, None)
+            self.step_s = probe["seconds"] / probe["attempted"]
+            self.next = probe["next"]
+        if self.mesh is not None:
+            from msnets_tpu_torch.parallel import mesh as pm
+            self.step_s = pm.broadcast_int(round(self.step_s * 1e6),
+                                           self.mesh.group) / 1e6
         self.watch.sync()
 
     def window(self, seconds: float, first: int = 0) -> dict:
         n, bad = 0, 0
-        i = first or self.cell.mix["checked_steps"]
+        i = first or self.next
+        steps = (None if self.mesh is None
+                 else max(1, round(seconds / max(self.step_s, 1e-6))))
+        if self.ahead_s is not None:
+            return self._ahead(i, steps, seconds)
         t0 = time.perf_counter()
-        while time.perf_counter() - t0 < seconds:
+        while (n < steps if steps is not None
+               else time.perf_counter() - t0 < seconds):
             m = self._step(i + n)
             if not all(math.isfinite(v) for v in m.values()):
                 bad += 1
@@ -357,10 +466,34 @@ class TrainSUT:
         return {"attempted": n, "failed": bad,
                 "seconds": time.perf_counter() - t0, "next": i + n}
 
+    def _ahead(self, i: int, steps: Optional[int], seconds) -> dict:
+        """``steps`` steps from ``i`` (else as many as ``seconds`` allows),
+        dispatched ahead (class docstring); the seconds run from the first
+        send to the end of the last step sent."""
+        depth = max(1, math.ceil(self.ahead_s / max(self.step_s, 1e-3)))
+        sent: List = []
+        n, bad = 0, 0
+
+        def read(m):
+            return 0 if all(math.isfinite(v) for v in m.values()) else 1
+
+        t0 = time.perf_counter()
+        while (n < steps if steps is not None
+               else time.perf_counter() - t0 < seconds):
+            sent.append(self._dispatch(i + n))
+            n += 1
+            if len(sent) > depth:
+                bad += read(self._await(sent.pop(0)))
+        for s in sent:
+            bad += read(self._await(s))
+        self.watch.sync()
+        return {"attempted": n, "failed": bad,
+                "seconds": time.perf_counter() - t0, "next": i + n}
+
     def layer_ms(self, layer: str, n: int = 10) -> Optional[float]:
         if layer != "features":
             return None
-        b = self.traffic.batches[0]
+        b = self.batches[0]
         il = torch.from_numpy(b["iml"]).to(self.device)
         ir = torch.from_numpy(b["imr"]).to(self.device)
         geo = (b["board_h"], b["board_w_left"], b["board_w_right"])
@@ -368,9 +501,12 @@ class TrainSUT:
                                   n)
 
 
-def make_sut(cell: Cell, seed: int, device, variant=None):
-    cls = TrainSUT if cell.kind == "train" else ServeSUT
-    return cls(cell, seed, device, variant)
+def make_sut(cell: Cell, seed: int, device, variant=None, mesh=None):
+    if cell.kind == "train":
+        return TrainSUT(cell, seed, device, variant, mesh)
+    if mesh is not None:
+        raise NotImplementedError("a serving cell runs on one card")
+    return ServeSUT(cell, seed, device, variant)
 
 
 # ---------------------------------------------------------------------------
@@ -383,6 +519,7 @@ class Trace:
     window_s: float
     kernels: Dict[str, List[float]]     # name -> [seconds, launches]
     idle_by_host: Dict[str, float]      # host op -> idle seconds under it
+    events: List[dict] = dataclasses.field(default_factory=list, repr=False)
 
     def kernel(self, part: str):
         """(seconds, launches) of the kernels whose name holds ``part``."""
@@ -449,10 +586,13 @@ def read_trace(events: List[dict]) -> Trace:
                 inner = h
         label = inner[2] if inner else "host outside any op"
         idle[label] = idle.get(label, 0.0) + (b - a) / 1e6
-    return Trace(busy / 1e6, (w1 - w0) / 1e6, kernels, idle)
+    return Trace(busy / 1e6, (w1 - w0) / 1e6, kernels, idle, events)
 
 
 def profiled_window(sut, seconds: float, first: int) -> Trace:
+    """``sut.window(seconds, first)`` under the profiler, inside a
+    ``WINDOW_SPAN`` span: its ``Trace``, which keeps the events for the
+    readers of the program's spans (``spans.py``)."""
     from torch.profiler import ProfilerActivity, profile, record_function
     acts = [ProfilerActivity.CPU]
     if sut.device.type == "cuda":
@@ -504,38 +644,39 @@ def serve_readings(cell: Cell, state_dict, traffic, sample,
                    device, control: bool = False) -> Dict[str, float]:
     """Reference disparities of the sample of the finished requests
     (``Sample``, drawn from the seed) and the gaps of the served ones
-    (``disparity_gaps``),
-    the worst request's of each. ``gap_ratio`` is a request's mean gap
-    over the mean gap that rounding the reference's feature volume to
+    (``disparity_gaps``), the worst request's of each, through the
+    configuration's reference system. ``gap_ratio`` is a request's mean
+    gap over the mean gap that rounding the reference's feature volume to
     bfloat16 causes: the gap in units of the seed's weights' sensitivity
     to rounding, which is steady from seed to seed where the gap in px
-    follows the weights' logit scale. With
-    ``control`` the reference in fp8 stands in the program's place."""
-    mc, m = cell.config["model"], cell.config["matching"]
-    model = RM.build(mc, device)
-    model.load_state_dict(state_dict)
+    follows the weights' logit scale. With ``control`` the reference in
+    fp8 stands in the program's place."""
+    system = reference.build(cell.config, device)
+    system.load_state_dict(state_dict)
     if control:
-        model_c = RM.build(mc, device)
-        model_c.load_state_dict(state_dict)
-        RC.fp8_convs(model_c)
+        system_c = reference.build(cell.config, device)
+        system_c.load_state_dict(state_dict)
+        RC.fp8_convs(system_c)
     worst = {"bad_shape": 0.0}
     each = []
     with torch.no_grad(), fp32():
         for i, got in sample:
             l, r = traffic.pair(i)
-            h, w = l.shape
+            h, w = l.shape[:2]
             if got.shape != (h, w) or not np.isfinite(got).all():
                 worst["bad_shape"] += 1
                 continue
-            pl, pr = RF.pad_to_bucket(l, r, mc["encoder_ds"])
-            vol = RF.features_test(torch.from_numpy(pl).to(device),
-                                   torch.from_numpy(pr).to(device),
-                                   mc["max_disp"], m)
+            pl, pr = loads.pad_to_bucket(l, r,
+                                         cell.config["model"]["encoder_ds"])
+            vol = system.serve_features(torch.from_numpy(pl).to(device),
+                                        torch.from_numpy(pr).to(device))
             crop = (0, slice(pl.shape[0] - h, None), slice(0, w))
-            ref = model(vol[None])[crop]
-            yard = model(vol[None].bfloat16().float())[crop]
-            got = (model_c(vol[None])[crop] if control
-                   else torch.from_numpy(got).to(device))
+            ref = system(vol[None])[crop]
+            yard = system(vol[None].bfloat16().float())[crop]
+            got = (system_c(system_c.serve_features(
+                       torch.from_numpy(pl).to(device),
+                       torch.from_numpy(pr).to(device))[None])[crop]
+                   if control else torch.from_numpy(got).to(device))
             g = disparity_gaps(got, ref)
             g["gap_ratio"] = g["mean_abs_px"] / max(
                 (yard - ref).abs().mean().item(), 1e-30)
@@ -567,10 +708,10 @@ def train_readings(cell: Cell, state_dict, traffic, program,
     Leaves whose reference gradient is under a thousandth of the median
     leaf's (nought to rounding, such as a bias under a softmax) stay out
     of the change."""
-    n = cell.mix["checked_steps"]
     with fp32():
-        ref = RT.steps(cell.config, state_dict, traffic.batches,
-                       cell.config["train"]["lr"], device, n)
+        ref = RT.steps(reference.build(cell.config, device), state_dict,
+                       traffic.batches, cell.config["train"]["lr"],
+                       cell.mix["checked_steps"])
     keys = sorted(ref["grad"])
     med = statistics.median(ref["grad"][k] for k in keys)
     moved = [k for k in keys if ref["grad"][k] >= 1e-3 * med]
@@ -621,7 +762,10 @@ class Context:
         return self.sut.layer_ms(layer)
 
     def kernel_bound_s(self, kernel: str) -> float:
-        return KC.KERNELS[kernel](*census_launch_shape(self.cell))["bound_s"]
+        """The least time of one launch of ``kernel`` at its launch shape
+        in the cell (``counts.kernels.KERNELS``)."""
+        count, shape = KC.KERNELS[kernel]
+        return count(*shape(self.cell))["bound_s"]
 
 
 def read_metric(name: str, ctx: Context) -> Optional[float]:
@@ -658,22 +802,49 @@ def forbidden_modules() -> List[str]:
                   & set(FORBIDDEN))
 
 
+def _over_ranks(mesh, values, op: str) -> List[float]:
+    """``values`` summed (``op="sum"``) or maximised over the mesh's ranks
+    (after a window, never inside one)."""
+    from msnets_tpu_torch.parallel import mesh as pm
+    dev = (torch.device("cuda", torch.cuda.current_device())
+           if torch.distributed.get_backend(mesh.group) == "nccl"
+           else torch.device("cpu"))
+    t = torch.tensor(values, dtype=torch.float64, device=dev)
+    reduce = pm.all_reduce_sum if op == "sum" else pm.all_reduce_max
+    return reduce(t, mesh.group).tolist()
+
+
 def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device,
              t_start: float, variant: Optional[str] = None,
-             profile_s: float = 3.0) -> dict:
+             profile_s: float = 3.0, mesh=None) -> Optional[dict]:
     """One run; returns the result object (``checks`` last) and the
-    readings under ``"readings"``, which ``run.py`` drops."""
+    readings under ``"readings"``, which ``run.py`` drops.
+
+    With a ``mesh`` this is one of the cell's rank processes (``ranks.py``,
+    ``TrainSUT``): every rank runs the set-up, the window and, with
+    ``trace``, the profiled sub-window, each profiling its own; the peak
+    memory is the fullest card's, ``busy_s`` and ``window_s`` the ranks'
+    means. Once every rank has freed its state, rank 0 alone runs the
+    check against the reference over the global batch and returns the
+    result; the other ranks return None."""
     device = torch.device(device)
     cuda = device.type == "cuda"
-    sut = make_sut(cell, seed, device, variant)
+    if cuda:                # a process that runs several (calibrate.py)
+        torch.cuda.reset_peak_memory_stats(device)
+    sut = make_sut(cell, seed, device, variant, mesh)
     if variant is not None and variant.startswith("fault:"):
         from . import faults
         faults.plant(variant[6:], sut)
     sut.warmup()
     setup_s = time.time() - t_start
+    lead = mesh is None or mesh.rank == 0
+    if mesh is not None:
+        log(f"{READY} rank {mesh.rank}")
     win = sut.window(seconds)
     sut.watch.sync()
     peak = torch.cuda.max_memory_allocated(device) if cuda else 0
+    if mesh is not None:
+        peak = int(_over_ranks(mesh, [peak], "max")[0])
     e2e = end_to_end(cell, win, setup_s)
     if cell.kind == "closed_loop":
         log(f"latency: median {e2e['latency_p50_ms']:.4f} ms, p95 "
@@ -691,17 +862,23 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device,
     breakdown = None
     if trace:
         tr = profiled_window(sut, profile_s, win["next"])
-        ctx = Context(cell, sut, tr, items, win["seconds"],
-                      flops_per_item(cell))
+        if mesh is not None:
+            busy, span = _over_ranks(mesh, [tr.busy_s, tr.window_s], "sum")
+            tr.busy_s, tr.window_s = busy / mesh.num_devices, \
+                span / mesh.num_devices
         metrics = {}
-        for m in cell.per_layer:
-            v = read_metric(m["name"], ctx)
-            if v is not None:
-                metrics[m["name"]] = {"value": v, "unit": m["unit"]}
-        del ctx
+        if lead:
+            ctx = Context(cell, sut, tr, items, win["seconds"],
+                          flops_per_item(cell))
+            for m in cell.per_layer:
+                v = read_metric(m["name"], ctx)
+                if v is not None:
+                    metrics[m["name"]] = {"value": v, "unit": m["unit"]}
+            del ctx
+            log(f"power: {power_limit()}")
         device_info.update(busy_s=tr.busy_s, window_s=tr.window_s)
         breakdown = tr.breakdown()
-        log(f"power: {power_limit()}")
+        del tr
     else:
         metrics = {m["name"]: {"value": e2e[m["name"]], "unit": m["unit"]}
                    for m in cell.end_to_end}
@@ -712,15 +889,22 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device,
     gc.collect()
     if cuda:
         torch.cuda.empty_cache()
+    if mesh is not None:
+        from msnets_tpu_torch.parallel import mesh as pm
+        pm.barrier(mesh.group)          # every rank has freed its state
+        if not lead:
+            return None
     bad = forbidden_modules()
     if bad:
         raise SystemExit(f"modules of {bad} are loaded; the port and the "
                          "benchmark must run without them")
+    t_check = time.time()
     if cell.kind == "train":
         if variant == "control":
             with fp32():
-                program = RT.steps(cell.config, state_dict, traffic.batches,
-                                   cell.config["train"]["lr"], device,
+                program = RT.steps(reference.build(cell.config, device),
+                                   state_dict, traffic.batches,
+                                   cell.config["train"]["lr"],
                                    cell.mix["checked_steps"],
                                    wrap=RC.fp8_convs)
         readings = train_readings(cell, state_dict, traffic, program, device)
@@ -728,6 +912,9 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device,
         readings = serve_readings(cell, state_dict, traffic, sample, device,
                                   control=variant == "control")
         readings["unanswered"] = float(win["failed"])
+    log(f"check: {time.time() - t_check:.4f} s against the reference; "
+        f"process peak {torch.cuda.max_memory_allocated(device) if cuda else 0}"
+        " bytes")
     correct, checks = judge(readings, cell.checks)
     result["correct"] = bool(correct and win["failed"] == 0
                              and readings.get("bad_shape", 0) == 0)

@@ -9,8 +9,8 @@ and W, softmax over D and the soft-argmin. MS-PSMNet (``psmnet_3dcnn.py``):
 dres0, dres1, three hourglasses with their pre/post skips, three
 classifiers summed cumulatively, each upsampled (trilinear, corners
 aligned) to full size and regressed. Train mode uses the batch's
-statistics; eval the running ones (no folding). ``conv_modules`` lists the
-3-D convolutions in call order for the operation counts.
+statistics; eval the running ones (no folding). The reference systems
+(``systems.py``) put a feature stage and a loss on these.
 """
 from __future__ import annotations
 
@@ -149,20 +149,3 @@ class PSMNet(nn.Module):
             return self._regress(cost1, full), self._regress(cost2, full), pred3
         return pred3
 
-
-MODELS = {"MS-GCNet": GCNet, "MS-PSMNet": PSMNet}
-
-
-def build(model_cfg: dict, device="cpu") -> nn.Module:
-    """The reference model of a configuration's ``model`` mapping, in eval
-    mode, float32, with uninitialised weights (load a state_dict)."""
-    cls = MODELS[model_cfg["name"]]
-    with torch.device(device):
-        m = cls(model_cfg["max_disp"], model_cfg["in_channels"],
-                model_cfg["base_filters"])
-    return m.eval()
-
-
-def conv_modules(model: nn.Module):
-    return [m for m in model.modules()
-            if isinstance(m, (nn.Conv3d, nn.ConvTranspose3d))]

@@ -16,17 +16,16 @@ profiling.span``) of the host thread that caused it.
 The layer of a span is its name's first component after ``msn.``. A
 request or a step is a root span (``ROOTS``) that starts in the window.
 
-The readers (``readers/span_layer.py``) run one such sub-window of the
-cell's traffic after the harness's own (whose events the harness does not
-keep), once a run, and share it through the run's ``Context``.
+The readers (``readers/span_layer.py``, ``readers/span_name.py``) read the
+harness's own profiled sub-window (``harness.profiled_window``, whose
+``Trace`` keeps its events), attributed once a run and shared through the
+run's ``Context``.
 """
 from __future__ import annotations
 
 import bisect
 import dataclasses
 import json
-import os
-import tempfile
 from typing import Dict, List, Optional, Tuple
 
 from . import harness
@@ -35,7 +34,6 @@ PREFIX = "msn."
 ROOTS = ("server.predict", "server.launch", "trainer.step")
 OUTSIDE = "outside"
 LAUNCH_CATS = ("cuda_runtime", "cuda_driver")
-SECONDS = 3.0               # the harness's own sub-window's length
 
 
 @dataclasses.dataclass
@@ -167,38 +165,12 @@ def attribute(events: List[dict]) -> SpanTrace:
     return SpanTrace(busy_s, idle_s, roots, (w1 - w0) / 1e6, union / 1e6)
 
 
-def profiled_events(sut, seconds: float, first: int) -> List[dict]:
-    """The Chrome trace's events of ``sut.window(seconds, first)`` under
-    the profiler, inside a ``harness.WINDOW_SPAN`` span (the harness's
-    ``profiled_window``, keeping the events)."""
-    from torch.profiler import ProfilerActivity, profile, record_function
-    acts = [ProfilerActivity.CPU]
-    if sut.device.type == "cuda":
-        acts.append(ProfilerActivity.CUDA)
-    sut.watch.sync()
-    with profile(activities=acts) as prof:
-        with record_function(harness.WINDOW_SPAN):
-            sut.window(seconds, first)
-            sut.watch.sync()
-    fd, path = tempfile.mkstemp(suffix=".json")
-    os.close(fd)
-    try:
-        prof.export_chrome_trace(path)
-        with open(path) as f:
-            return json.load(f)["traceEvents"]
-    finally:
-        os.remove(path)
-
-
 def of(ctx) -> Optional[SpanTrace]:
-    """The run's ``SpanTrace``: a sub-window of ``SECONDS`` of the cell's
-    traffic, profiled on the first call and kept on the ``Context``. The
-    serving requests take indices no request of the run has had (the
-    check's sample holds each index once)."""
+    """The run's ``SpanTrace``: the attribution of the events of the
+    harness's profiled sub-window, made on the first call and kept on the
+    ``Context``."""
     if not hasattr(ctx, "span_trace"):
-        order = getattr(ctx.sut.traffic, "_order", None)
-        first = len(order) if order is not None else 0
-        tr = attribute(profiled_events(ctx.sut, SECONDS, first))
+        tr = attribute(ctx.trace.events)
         harness.log("spans: " + json.dumps(tr.summary()))
         ctx.span_trace = tr
     return ctx.span_trace

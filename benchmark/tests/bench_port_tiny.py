@@ -2,7 +2,8 @@
 files, the same code paths, widths and frames cut so that a run takes
 seconds on a CPU (serving max_disp 32, F 4, 64x128 frames; training
 max_disp 64, F 8, 64x128 crops: at F 4 the bf16 gradients of the first
-BN leaves stray past the limits set at F 32)."""
+BN leaves stray past the limits set at F 32). A cell on several cards
+runs on 2 ranks (gloo, ``bench_port_rank.py``), 2 samples a rank."""
 import sys
 import time
 from pathlib import Path
@@ -14,6 +15,7 @@ if str(ROOT) not in sys.path:
 from benchmark import harness  # noqa: E402
 
 CELLS = ("gcnet-kitti-online", "psmnet-kitti-eval", "gcnet-train-sf")
+RANKED = ("gcnet-train-sf-dp4",)
 SEED = 2**31 + 11
 
 
@@ -22,6 +24,9 @@ def tiny(name: str) -> harness.Cell:
     if c.kind == "train":
         c.config["model"].update(max_disp=64, base_filters=8)
         c.mix.update(crop=[64, 128], pool=4, disparity_px=[0, 62])
+        if "mesh" in c.mix:
+            c.mix.update(mesh=[2, 1, 1], batch=4)
+            c.chips = 2
     else:
         c.config["model"].update(max_disp=32, base_filters=4)
         c.mix.update(frame=[64, 128], sizes=[[64, 128, 3], [62, 126, 1]],

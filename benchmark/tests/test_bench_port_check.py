@@ -41,3 +41,41 @@ def test_the_train_control_stands_apart():
     sound = run("gcnet-train-sf")["readings"]["disp_mean_abs_px"]
     control = run("gcnet-train-sf", "control")["readings"]["disp_mean_abs_px"]
     assert control >= 3 * sound
+
+
+def _ahead_sut():
+    from bench_port_tiny import SEED, harness, tiny
+    c = tiny("gcnet-train-sf")
+    c.mix["dispatch_ahead_s"] = 0.05
+    return c, harness.TrainSUT(c, SEED, "cpu")
+
+
+def test_the_dispatch_ahead_feed_gives_the_check_the_same_readings():
+    """A mix with ``dispatch_ahead_s`` feeds the checked steps through the
+    window's own feed; the check reads the same numbers as the plain one."""
+    plain = run("gcnet-train-sf")["readings"]
+    c, _ = _ahead_sut()
+    ahead = run("gcnet-train-sf", cell=c)
+    assert ahead["correct"], ahead["checks"]
+    assert ahead["readings"] == plain
+
+
+def test_a_window_dispatched_ahead_reads_every_step_it_sent():
+    c, sut = _ahead_sut()
+    sut.warmup()
+    assert sut.next == c.mix["checked_steps"] + sut.PROBE_STEPS
+    fn, calls = sut.fn, []
+
+    def nan_on_the_second(*a):
+        metrics, disp = fn(*a)
+        calls.append(1)
+        if len(calls) == 2:
+            metrics = dict(metrics, loss=metrics["loss"] * float("nan"))
+        return metrics, disp
+
+    sut.fn = nan_on_the_second
+    w = sut._ahead(sut.next, 5, None)
+    assert (w["attempted"], w["failed"], len(calls)) == (5, 1, 5)
+    assert w["next"] == sut.next + 5 and w["seconds"] > 0
+    w = sut.window(0.2)
+    assert w["attempted"] >= 1 and w["failed"] == 0

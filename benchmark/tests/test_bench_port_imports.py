@@ -28,9 +28,10 @@ def _loaded(body, names):
 
 def test_reference_and_counts_load_no_program():
     body = ("import benchmark.reference.features, benchmark.reference.models,"
-            " benchmark.reference.train, benchmark.reference.control,"
-            " benchmark.counts.flops, benchmark.counts.kernels,"
-            " benchmark.counts.peaks, benchmark.loads, benchmark.weights")
+            " benchmark.reference.systems, benchmark.reference.train,"
+            " benchmark.reference.control, benchmark.counts.flops,"
+            " benchmark.counts.kernels, benchmark.counts.peaks,"
+            " benchmark.loads, benchmark.weights, benchmark.ranks")
     assert _loaded(body, ("jax", "jaxlib", "flax", "msnets_tpu",
                           "msnets_tpu_torch")) == []
 

@@ -6,9 +6,8 @@ import pytest
 import torch
 
 from bench_port_tiny import SEED, harness, run, tiny
-from benchmark import loads, weights
+from benchmark import loads, reference, weights
 from benchmark.reference import features as RF
-from benchmark.reference import models as RM
 
 from msnets_tpu_torch.config import MatchingConfig, ModelConfig
 from msnets_tpu_torch.models import build_model
@@ -42,9 +41,11 @@ def test_features_train_match_the_port():
 
 @pytest.mark.parametrize("name", ["MS-GCNet", "MS-PSMNet"])
 def test_models_match_the_port(name):
-    mc = {"name": name, "max_disp": 32, "in_channels": 8, "base_filters": 4}
-    sd = weights.make(mc, SEED, "cpu")
-    ref = RM.build(mc)
+    conf = {"reference": "systems." + name.replace("-", ""),
+            "model": {"max_disp": 32, "in_channels": 8, "base_filters": 4},
+            "matching": MATCHING}
+    sd = weights.make(conf, SEED, "cpu")
+    ref = reference.build(conf)
     ref.load_state_dict(sd)
     port = build_model(ModelConfig(name=name, max_disp=32, base_filters=4,
                                    compute_dtype="float32"), "cpu")
@@ -83,3 +84,21 @@ def test_serving_matches_the_reference_in_float32(name):
     r = run(name, cell=cell)
     assert r["readings"]["compared"] == 2.0
     assert r["readings"]["max_abs_px"] < 1e-3
+
+
+def test_psmnet_train_steps_match_the_port_in_float32():
+    """MS-PSMNet's reference system (its three heads weighted as the
+    port's ``psmnet_loss``) against the port's ``Trainer`` on the tiny
+    train cell's traffic, both in float32."""
+    cell = tiny("gcnet-train-sf")
+    conf = harness.load_cell("psmnet-kitti-eval").config
+    conf["model"].update(max_disp=64, base_filters=8,
+                         compute_dtype="float32")
+    cell.config = conf
+    sut = harness.make_sut(cell, SEED, "cpu")
+    sut.warmup()
+    r = harness.train_readings(cell, sut.state_dict, sut.traffic,
+                               sut.readings, "cpu")
+    assert r["loss_gap_step1"] < 1e-5 and r["grad_gap"] < 1e-3
+    assert r["disp_max_abs_px"] < 1e-3 and r["loss_gap"] < 1e-4
+    assert r["change_gap_median"] < 1e-3 and r["change_gap"] < 0.05

@@ -120,11 +120,11 @@ def _new_metrics(result, tag):
 
 
 @pytest.mark.parametrize("name", list(NEW))
-def test_a_traced_run_reports_the_span_metrics(name, monkeypatch, capsys):
+def test_a_traced_run_reports_the_span_metrics(name, capsys):
     """On the CPU the device is idle all through the window: the idle
     split follows the spans at the window's middle, and the run still
-    prints each new metric of its cell."""
-    monkeypatch.setattr(spans, "SECONDS", 0.5)
+    prints each new metric of its cell, read from the harness's own
+    profiled sub-window."""
     r = run(name, trace=True)
     assert r["correct"], r["checks"]
     tag = {"gcnet-kitti-online": ".online", "psmnet-kitti-eval": ".eval",
@@ -149,7 +149,6 @@ def test_a_program_without_spans_leaves_them_out(monkeypatch):
     for mod in (serve, trainer, features):
         monkeypatch.setattr(mod, "span",
                             lambda name: contextlib.nullcontext())
-    monkeypatch.setattr(spans, "SECONDS", 0.3)
     r = run("gcnet-kitti-online", trace=True)
     assert r["correct"]
     assert not _new_metrics(r, ".online")

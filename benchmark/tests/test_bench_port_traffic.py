@@ -45,8 +45,8 @@ def test_pairs_follow_their_disparity():
 def test_train_mix_shapes_and_seed():
     spec = loads.load("sceneflow-train")
     spec.update(pool=2)
-    a, b = (loads.Training(spec, s, 192, 12) for s in (5, 5))
-    c = loads.Training(spec, 6, 192, 12)
+    a, b = (loads.Training(spec, s, (12, 192, 0)) for s in (5, 5))
+    c = loads.Training(spec, 6, (12, 192, 0))
     x = a.batches[0]
     assert x["iml"].shape == (2, 280, 704) and x["iml"].dtype == np.uint8
     assert x["disp"].shape == (2, 256, 512) and x["disp"].dtype == np.float32
