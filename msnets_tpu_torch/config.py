@@ -55,7 +55,7 @@ class MatchingConfig:
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     """3-D cost-volume regularizer configuration."""
-    name: str = "MS-GCNet"       # "MS-GCNet" | "MS-PSMNet"
+    name: str = "MS-GCNet"       # "MS-GCNet" | "MS-PSMNet" | "GC-Net"
     max_disp: int = 192
     in_channels: int = 8
     base_filters: int = 32       # GCNet "F"

@@ -10,6 +10,16 @@ around ``trainer.h2d``, ``features``, ``regularizer.forward``,
 ``trainer.loss``, ``regularizer.backward``, ``trainer.metrics``,
 ``trainer.allreduce`` (over a group) and ``trainer.optimizer``.
 
+A model with a learned feature stage (GC-Net, ``models.learned_features``)
+takes uint8 RGB crops [N, h, w, 3] with no margins (0, 0, 0) and computes
+its volume with gradient inside the micro-batch (``GCNet.features``: spans
+``features.unary``, ``features.volume``); the tower trains with the
+regularizer, and its backward, the volume's (span
+``features.volume_backward``) aside, runs inside ``regularizer.backward``.
+It trains on one device: over a group or a mesh the tower's BN would need
+its statistics across ranks, which the port does not have, so the
+``Trainer`` refuses it there.
+
 Where the JAX package carries a ``TrainState`` through a jitted function,
 the port's ``Trainer`` owns its state and updates it in place: the model
 (float32 parameters and BN statistics), the optimizer and the step count.
@@ -72,7 +82,7 @@ from typing import Callable, Dict, Optional, Tuple
 import torch
 
 from ..config import Config
-from ..models import build_model, compute_dtype
+from ..models import build_model, compute_dtype, learned_features
 from ..ops.features import ms_features_train
 from ..ops.matchers import _div_const
 from ..parallel import mesh as pm
@@ -130,6 +140,12 @@ class Trainer:
                 "the target's size. The JAX Trainer fails the same way "
                 "(MS-GCNet's depth assertion at init, MS-PSMNet's loss "
                 "shapes at the first step)")
+        self.learned = learned_features(cfg.model)
+        if self.learned and mesh is not None:
+            raise NotImplementedError(
+                f"{cfg.model.name} trains on one device: its learned tower's "
+                "BatchNorm has no statistics across ranks, so a group or a "
+                "mesh is refused")
         self.cfg = cfg
         self.mesh, self.data = mesh, data
         self.group = mesh.group if mesh is not None else None
@@ -165,7 +181,17 @@ class Trainer:
                  dtype: Optional[torch.dtype] = None) -> torch.Tensor:
         """uint8 [N, h, w] crops (margins included) on the device -> the
         feature volume [N, C, D, H, W] in ``dtype`` (the compute dtype by
-        default); one ``ms_features_train`` per sample."""
+        default); one ``ms_features_train`` per sample. A learned stage
+        takes uint8 RGB [N, h, w, 3] crops with no margins and gives its
+        volume in the compute dtype, with the graph to its weights (when
+        gradients are enabled)."""
+        if self.learned:
+            if (board_h, bwl, bwr) != (0, 0, 0):
+                raise ValueError(
+                    f"{self.cfg.model.name} takes crops with no margins, got "
+                    f"(board_h, bwl, bwr) = {(board_h, bwl, bwr)}")
+            with span("features"):
+                return self.model.features(iml, imr)
         m = self.cfg.matching
         with torch.no_grad(), span("features"):
             return torch.stack([ms_features_train(
@@ -266,7 +292,13 @@ class Trainer:
         """(iml, imr) -> argmin over disparity of the four matching-cost
         channels, float32 [N, 4, H, W]: the reference's feature-quality
         images (main_msnet.py:443-458). Recomputes the feature stage in
-        bfloat16, so call it on summary steps only."""
+        bfloat16, so call it on summary steps only. A learned stage has no
+        matching-cost channels, so it is refused."""
+        if self.learned:
+            raise ValueError(f"{self.cfg.model.name} has a learned feature "
+                             "stage: there are no matching-cost channels "
+                             "to probe")
+
         def probe(iml, imr):
             f = self.features(_as_device(iml, self.device, torch.uint8),
                               _as_device(imr, self.device, torch.uint8),

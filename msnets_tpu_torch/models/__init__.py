@@ -8,16 +8,17 @@ import torch
 from ..config import ModelConfig
 from ..runtime import DeviceLike, resolve_device
 from .gcnet import MSGCNet
+from .gcnet_kendall import GCNet
 from .layers import fold_batchnorm, resize_trilinear_align_corners, soft_argmin
 from .psmnet import MSPSMNet
 from .quant import QUANT_MODES, coverage
 
-__all__ = ["MSGCNet", "MSPSMNet", "build_model", "compute_dtype",
-           "fold_batchnorm", "quant_convs", "resize_trilinear_align_corners",
-           "soft_argmin"]
+__all__ = ["GCNet", "MSGCNet", "MSPSMNet", "build_model", "compute_dtype",
+           "fold_batchnorm", "learned_features", "quant_convs",
+           "resize_trilinear_align_corners", "soft_argmin"]
 
 
-_MODELS = {"MS-GCNet": MSGCNet, "MS-PSMNet": MSPSMNet}
+_MODELS = {"MS-GCNet": MSGCNet, "MS-PSMNet": MSPSMNet, "GC-Net": GCNet}
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
@@ -27,10 +28,17 @@ def compute_dtype(model_cfg: ModelConfig) -> torch.dtype:
     return _DTYPES[model_cfg.compute_dtype]
 
 
+def learned_features(model_cfg: ModelConfig) -> bool:
+    """Whether the model computes its own volume from uint8 RGB pairs
+    (``GCNet.features``, GC-Net) instead of taking the matching-space
+    volume of grey pairs."""
+    return _model_class(model_cfg.name) is GCNet
+
+
 def build_model(model_cfg: ModelConfig, device: DeviceLike = None,
                 generator: Optional[torch.Generator] = None,
                 remat: bool = False, remat_scope: str = "all"
-                ) -> Union[MSGCNet, MSPSMNet]:
+                ) -> Union[MSGCNet, MSPSMNet, GCNet]:
     """The model of ``model_cfg`` in eval mode on ``device`` (the GPU when
     ``None``): float32 parameters, convolutions in ``model_cfg``'s compute
     dtype, weights drawn from ``generator`` (a CPU generator; the default
@@ -45,7 +53,10 @@ def build_model(model_cfg: ModelConfig, device: DeviceLike = None,
     run int8 in ``model_cfg.quant_mode`` once the model is folded
     (``fold_batchnorm``), as the server and the evaluator run it; train
     mode is never quantized. ``quant.quant_stats``, ``load_quant_stats``
-    and ``set_quant_mode`` read and set a folded model's calibration."""
+    and ``set_quant_mode`` read and set a folded model's calibration.
+
+    "GC-Net" is ``GCNet``: a tower ``in_channels / 2`` wide, and
+    MS-GCNet's regularizer with the same settings."""
     dev = resolve_device(device)
     _model_class(model_cfg.name)
     if model_cfg.quant_mode not in QUANT_MODES:
@@ -58,6 +69,13 @@ def build_model(model_cfg: ModelConfig, device: DeviceLike = None,
                          4 if model_cfg.quarter_input else 2, generator,
                          compute_dtype(model_cfg), remat, remat_scope, *q,
                          model_cfg.packed_eval_outer)
+    elif model_cfg.name == "GC-Net":
+        model = GCNet(model_cfg.max_disp, model_cfg.in_channels,
+                      model_cfg.base_filters, generator,
+                      compute_dtype=compute_dtype(model_cfg), remat=remat,
+                      quarter_input=model_cfg.quarter_input,
+                      quant_eval=q[0], quant_mode=q[1],
+                      quant_scope=model_cfg.quant_scope)
     else:
         model = MSGCNet(model_cfg.max_disp, model_cfg.in_channels,
                         model_cfg.base_filters, generator,

@@ -16,7 +16,7 @@ surface. Correlation outputs are disparity-first [N, D, H, W].
     output_padding 1) or 4 (padding 1), (+BN)(+ReLU), a bias without BN
     (basic_convs.py:125-277).
 
-BatchNorm follows the JAX package in train mode (``layers.BatchNorm3d``:
+BatchNorm follows the JAX package in train mode (``layers.BatchNorm2d``:
 biased running variance, momentum 0.1). ``models/convert.py`` maps the JAX
 blocks' variables onto these (``conv_block2d_key_map``,
 ``upconv_block2d_key_map``).
@@ -29,7 +29,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from .layers import BatchNorm3d, he_normal_
+from .layers import BatchNorm2d, he_normal_
 
 
 def correlation1d_map(x: torch.Tensor, y: torch.Tensor,
@@ -67,15 +67,6 @@ def corr1d(fL: torch.Tensor, fR: torch.Tensor, D: int, stride: int = 1,
         corr = F.avg_pool2d(corr, kernel_size, 1, kernel_size // 2,
                             count_include_pad=True)
     return corr
-
-
-class BatchNorm2d(BatchNorm3d):
-    """``layers.BatchNorm3d`` (the JAX package's train statistics) on
-    [N, C, H, W]."""
-
-    def _check_input_dim(self, input):
-        if input.dim() != 4:
-            raise ValueError(f"expected 4D input (got {input.dim()}D input)")
 
 
 def _same_pad(n: int, k: int, s: int):

@@ -26,6 +26,10 @@ Eval folds BN into the preceding conv or deconv (``fold_batchnorm``), in
 float32, as the JAX eval path does: y = conv(x, k*a) + (beta - mu*a) with
 a = gamma * rsqrt(var + eps).
 
+``BatchNorm2d`` and ``ConvBN2D`` are the same on [N, C, H, W], for a
+learned 2-D feature tower (GC-Net's, ``gcnet_kendall.py``), which has no
+JAX counterpart; ``fold_batchnorm`` folds them too.
+
 ``remat`` runs a stage through ``torch.utils.checkpoint`` (the JAX models'
 ``nn.remat``): its activations are recomputed in the backward, and the
 recomputation leaves the BN running statistics as the forward left them.
@@ -165,6 +169,15 @@ class BatchNorm3d(nn.BatchNorm3d):
         return x._like(out) if sharded else out
 
 
+class BatchNorm2d(BatchNorm3d):
+    """``BatchNorm3d`` (the JAX package's train statistics) on
+    [N, C, H, W]."""
+
+    def _check_input_dim(self, input):
+        if input.dim() != 4:
+            raise ValueError(f"expected 4D input (got {input.dim()}D input)")
+
+
 def _bn(cout: int) -> BatchNorm3d:
     return BatchNorm3d(cout, eps=1e-5, momentum=0.1)
 
@@ -232,6 +245,34 @@ class DeconvBN3D(nn.Sequential):
         return out
 
 
+class ConvBN2D(nn.Sequential):
+    """conv2d (k, padding k // 2, no bias) + ``BatchNorm2d``: a learned
+    feature tower's layer (``gcnet_kendall.UnaryTower``). Like ``ConvBN3D``
+    its kernel is cast to the input's dtype and BN keeps float32
+    statistics; eval folds BN into the conv (``folded``)."""
+
+    def __init__(self, cin: int, cout: int, kernel: int = 3, stride: int = 1):
+        super().__init__(nn.Conv2d(cin, cout, kernel, stride=stride,
+                                   padding=kernel // 2, bias=False),
+                         BatchNorm2d(cout, eps=1e-5, momentum=0.1))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        conv, bn = self[0], self[1]
+        return bn(F.conv2d(x, conv.weight.to(x.dtype), None, conv.stride,
+                           conv.padding))
+
+    def folded(self) -> nn.Conv2d:
+        conv, bn = self[0], self[1]
+        a, b = _bn_affine(bn)
+        out = nn.Conv2d(conv.in_channels, conv.out_channels, conv.kernel_size,
+                        stride=conv.stride, padding=conv.padding, bias=True,
+                        device=conv.weight.device)
+        with torch.no_grad():
+            out.weight.copy_(conv.weight.float() * a.view(-1, 1, 1, 1))
+            out.bias.copy_(b)
+        return out
+
+
 def _bn_affine(bn: nn.BatchNorm3d):
     """Eval BatchNorm as y = a*x + b per channel, in float32."""
     a = bn.weight.float() * torch.rsqrt(bn.running_var.float() + bn.eps)
@@ -257,10 +298,10 @@ class Conv3DBlock(nn.Module):
 
 
 def fold_batchnorm(module: nn.Module) -> nn.Module:
-    """Replace every ConvBN3D / DeconvBN3D under ``module`` (in place) by
-    its folded eval conv; returns ``module``."""
+    """Replace every ConvBN3D / DeconvBN3D / ConvBN2D under ``module`` (in
+    place) by its folded eval conv; returns ``module``."""
     for name, child in module.named_children():
-        if isinstance(child, (ConvBN3D, DeconvBN3D)):
+        if isinstance(child, (ConvBN3D, DeconvBN3D, ConvBN2D)):
             setattr(module, name, child.folded())
         else:
             fold_batchnorm(child)

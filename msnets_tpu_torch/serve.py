@@ -1,9 +1,11 @@
 """Shape-bucketed stereo serving on the GPU (counterpart of
 ``msnets_tpu/serve.py``).
 
-A request is a uint8 [H, W] pair. It is zero-padded on top and right to a
-bucket shape (``pick_bucket``), goes through the feature stage and the model
-on the device, and the disparity is cropped back to [H, W].
+A request is a uint8 [H, W] pair, or [H, W, 3] RGB for a model with a
+learned feature stage (GC-Net, ``models.learned_features``). It is
+zero-padded on top and right to a bucket shape (``pick_bucket``), goes
+through the feature stage and the model on the device, and the disparity is
+cropped back to [H, W]. A pair of the other kind raises ``ValueError``.
 
 Two bucketing modes, as in the JAX server:
 
@@ -17,9 +19,11 @@ Two bucketing modes, as in the JAX server:
 The feature stage follows ``cfg.matching``: the 8-channel matching space
 (the default), the 16-channel left+right one (``num_channels=16``) or the
 2-channel raw-intensity volume (``features_mode="raw"``); the model's
-``in_channels`` must be ``cfg.matching.feature_channels``.
+``in_channels`` must be ``cfg.matching.feature_channels``. GC-Net computes
+its own volume (``GCNet.features``: the unary tower, folded and cast as
+the regularizer is, and the concat volume) and ignores ``cfg.matching``.
 
-The server runs MS-GCNet or MS-PSMNet (``cfg.model.name``) in
+The server runs MS-GCNet, MS-PSMNet or GC-Net (``cfg.model.name``) in
 ``cfg.model.compute_dtype``. In bfloat16 the BatchNorm affines are folded
 into the conv and deconv weights in float32 and cast once (the JAX eval
 math); the children a model names in ``FLOAT32_CHILDREN`` stay float32
@@ -95,7 +99,8 @@ import numpy as np
 import torch
 
 from .config import Config
-from .models import build_model, compute_dtype, fold_batchnorm
+from .models import (build_model, compute_dtype, fold_batchnorm,
+                     learned_features)
 from .models import quant as Q
 from .models.layers import cast_eval_model
 from .ops.features import ms_features_test
@@ -126,12 +131,13 @@ def pick_bucket(h: int, w: int,
 
 def pad_to_bucket(iml: np.ndarray, imr: np.ndarray,
                   bucket: Tuple[int, int]) -> Tuple[np.ndarray, np.ndarray]:
-    """Zero-pad a uint8 pair on TOP and RIGHT to the bucket shape."""
-    h, w = iml.shape
+    """Zero-pad a uint8 pair, [H, W] or [H, W, C], on TOP and RIGHT to the
+    bucket shape."""
+    h, w = iml.shape[:2]
     ph, pw = bucket[0] - h, bucket[1] - w
     if ph < 0 or pw < 0:
         raise ValueError(f"frame {iml.shape} larger than bucket {bucket}")
-    pad = ((ph, 0), (0, pw))
+    pad = ((ph, 0), (0, pw)) + ((0, 0),) * (iml.ndim - 2)
     return np.pad(iml, pad), np.pad(imr, pad)
 
 
@@ -163,9 +169,10 @@ class _Slot:
     """Host buffers of one frame in flight: the padded pair going in and the
     bucket's disparity coming back; pinned when the server is on a GPU."""
 
-    def __init__(self, bucket: Tuple[int, int], pin: bool):
-        self.pair = torch.empty((2,) + tuple(bucket), dtype=torch.uint8,
-                                pin_memory=pin)
+    def __init__(self, bucket: Tuple[int, int], pin: bool,
+                 pixel: Tuple[int, ...] = ()):
+        self.pair = torch.empty((2,) + tuple(bucket) + pixel,
+                                dtype=torch.uint8, pin_memory=pin)
         self.out = torch.empty(tuple(bucket), dtype=torch.float32,
                                pin_memory=pin)
 
@@ -189,6 +196,9 @@ class StereoServer:
         self.buckets = tuple(tuple(b) for b in buckets) if buckets else None
         self.depth = max(1, depth)
         self.dtype = compute_dtype(cfg.model)
+        self.learned = learned_features(cfg.model)
+        # a pixel's shape: RGB for a learned stage, grey otherwise
+        self.pixel: Tuple[int, ...] = (3,) if self.learned else ()
         stats = _checked_quant_stats(cfg, quant_stats)
         model = build_model(cfg.model, self.device)
         model.load_state_dict(state_dict)
@@ -231,10 +241,13 @@ class StereoServer:
         return Q.quant_stats(self.model, recorded)
 
     def features(self, iml: torch.Tensor, imr: torch.Tensor) -> torch.Tensor:
-        """Device uint8 bucket-shaped pair -> feature volume [C, D, H, W]
-        in the compute dtype."""
+        """Device uint8 bucket-shaped pair ([H, W], or [H, W, 3] for a
+        learned stage) -> feature volume [C, D, H, W] in the compute
+        dtype."""
         m = self.cfg.matching
         with span("features"):
+            if self.learned:
+                return self.model.features(iml[None], imr[None])[0]
             return ms_features_test(iml, imr, self.cfg.model.max_disp, m,
                                     m.left_only, self.dtype)
 
@@ -260,7 +273,8 @@ class StereoServer:
         todo = list(self.buckets or ()) + [
             pick_bucket(h, w, self.buckets, enc) for h, w in shapes]
         for bucket in todo:
-            zero = torch.zeros(bucket, dtype=torch.uint8, device=self.device)
+            zero = torch.zeros(tuple(bucket) + self.pixel, dtype=torch.uint8,
+                               device=self.device)
             self.forward(zero, zero)
             with self._lock:
                 self._warm.add(tuple(bucket))
@@ -274,11 +288,19 @@ class StereoServer:
             hits = self._stats["bucket_hits"]
             hits[bucket] = hits.get(bucket, 0) + 1
 
+    def _frame(self, iml: np.ndarray, imr: np.ndarray) -> Tuple[int, int]:
+        """(H, W) of a pair of the model's kind (module docstring)."""
+        if iml.shape != imr.shape or iml.shape[2:] != self.pixel:
+            kind = "RGB [H, W, 3]" if self.learned else "grey [H, W]"
+            raise ValueError(f"{self.cfg.model.name} takes {kind} pairs of "
+                             f"one shape, got {iml.shape} and {imr.shape}")
+        return iml.shape[:2]
+
     def predict(self, iml: np.ndarray, imr: np.ndarray) -> np.ndarray:
-        """One frame, blocking: uint8 [H, W] pair -> float32 [H, W]
-        disparity at the original resolution."""
+        """One frame, blocking: uint8 [H, W] pair ([H, W, 3] for a learned
+        stage) -> float32 [H, W] disparity at the original resolution."""
         with span("server.predict"):
-            h, w = iml.shape
+            h, w = self._frame(iml, imr)
             with span("server.pad"):
                 bucket = pick_bucket(h, w, self.buckets,
                                      self.cfg.model.encoder_ds)
@@ -303,7 +325,8 @@ class StereoServer:
             if pool is None:
                 pool = self._slots[bucket] = queue.Queue()
                 for _ in range(self.depth):
-                    pool.put(_Slot(bucket, self.device.type == "cuda"))
+                    pool.put(_Slot(bucket, self.device.type == "cuda",
+                                   self.pixel))
         try:
             return pool.get_nowait()
         except queue.Empty:
@@ -322,7 +345,7 @@ class StereoServer:
         forward and its device-to-host copy; returns (slot, copied event or
         None on the CPU, h, w, bucket) without waiting for the device."""
         with span("server.launch"):
-            h, w = iml.shape
+            h, w = self._frame(iml, imr)
             with span("server.pad"):
                 bucket = pick_bucket(h, w, self.buckets,
                                      self.cfg.model.encoder_ds)
@@ -372,8 +395,8 @@ class StereoServer:
 
     def predict_stream(self, pairs: Iterable[Tuple[np.ndarray, np.ndarray]]
                        ) -> Iterator[np.ndarray]:
-        """Pipelined inference over uint8 pairs, up to ``depth`` frames in
-        flight; yields float32 disparities in input order. A frame that
+        """Pipelined inference over uint8 pairs (as ``predict`` takes them),
+        up to ``depth`` frames in flight; yields float32 disparities in input order. A frame that
         fails raises its error at its place in the order. Abandoning the
         generator drains the frames in flight and stops the fetcher."""
         q: "queue.Queue" = queue.Queue(maxsize=self.depth)

@@ -20,6 +20,14 @@ The spans, by layer (the first component after ``msn.``):
     on 8 channels ``features.census_aml`` and ``features.matchers``, on 16
     channels ``features.census``, ``features.ncc``, ``features.zsad``,
     ``features.sobel_sad`` and ``features.assemble`` (``ops/features.py``);
+    GC-Net's learned stage has ``features.unary`` (the tower on both
+    views) and ``features.volume`` (the concat volume) inside
+    ``features`` (``models/gcnet_kendall.py``), and in training
+    ``features.volume_backward``, opened on autograd's thread inside the
+    volume's backward (``ops/volume.py``; counters
+    ``concat_volume.launches``, one a volume built, and
+    ``concat_volume.bytes``); the tower's own backward has no span and
+    runs inside ``regularizer.backward``;
   * regularizer: ``regularizer`` (the model when serving),
     ``regularizer.forward`` and ``regularizer.backward`` (training);
   * trainer: ``trainer.step`` (the root of a step) with ``trainer.h2d``,
