@@ -148,6 +148,7 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def args_to_config(a) -> Config:
+    from .models import model_class
     seed = a.seed if a.seed > 0 else int(time.time()) % (2 ** 31)
     remat = a.remat if a.remat is not None else (
         a.model_name == "MS-PSMNet" or TrainConfig.remat)
@@ -170,7 +171,8 @@ def args_to_config(a) -> Config:
     return Config(
         matching=matching,
         model=ModelConfig(name=a.model_name, max_disp=a.max_disp,
-                          in_channels=matching.feature_channels,
+                          in_channels=model_class(
+                              a.model_name).STAGE.channels(matching),
                           compute_dtype=a.compute_dtype,
                           quant_eval=bool(a.quant_eval),
                           quant_mode=a.quant_mode,

@@ -108,6 +108,20 @@ def psmnet_loss(disp0, disp1, disp2, target, mask, is_kitti: bool,
     return 0.2 * l0 + 0.6 * l1 + l2
 
 
+def disparity(out):
+    """A model's disparity: the last of its train heads, or its one map."""
+    return out[-1] if isinstance(out, tuple) else out
+
+
+def train_loss(out, target, mask, is_kitti: bool, thresh: float = 3.0,
+               alpha: float = 2.0):
+    """A model's train output -> (loss, disparity): three heads (MS-PSMNet)
+    take ``psmnet_loss``, one map (MS-GCNet, GC-Net) ``gcnet_loss``."""
+    heads = out if isinstance(out, tuple) else (out,)
+    loss = psmnet_loss if len(heads) == 3 else gcnet_loss
+    return loss(*heads, target, mask, is_kitti, thresh, alpha), heads[-1]
+
+
 def valid_accu3(target, pred, mask, thred: float = 3.0) -> torch.Tensor:
     """Fraction of valid pixels with |err| <= thred (reference loss.py:17-21)."""
     return masked_mean(((target - pred).abs() <= thred).float(), mask)

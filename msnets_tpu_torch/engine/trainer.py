@@ -1,24 +1,19 @@
-"""Trainer: the MS-GCNet and MS-PSMNet train step with the feature stage on
-the device (counterpart of ``msnets_tpu/engine/trainer.py``).
+"""Trainer: the train step of any of the port's models with its feature stage
+on the device (counterpart of ``msnets_tpu/engine/trainer.py``).
 
-One step takes uint8 image crops, computes the matching-space features
-(``ms_features_train``, one sample at a time, so one ``census_aml`` launch a
-sample for 8 channels or one ``census`` launch for 16), runs the model in
-train mode, the loss, the gradients, Adam and the BatchNorm updates. In a
+One step takes uint8 image crops, computes the model's feature stage
+(the model's ``STAGE``), runs the model in train mode, the loss
+(``loss.train_loss``, by the model's heads), the gradients, Adam and the
+BatchNorm updates; the trainer never asks which model it runs. In a
 profiler's trace (``utils.profiling.span``) a step is ``trainer.step``
 around ``trainer.h2d``, ``features``, ``regularizer.forward``,
 ``trainer.loss``, ``regularizer.backward``, ``trainer.metrics``,
 ``trainer.allreduce`` (over a group) and ``trainer.optimizer``.
 
-A model with a learned feature stage (GC-Net, ``models.learned_features``)
-takes uint8 RGB crops [N, h, w, 3] with no margins (0, 0, 0) and computes
-its volume with gradient inside the micro-batch (``GCNet.features``: spans
-``features.unary``, ``features.volume``); the tower trains with the
-regularizer, and its backward, the volume's (span
-``features.volume_backward``) aside, runs inside ``regularizer.backward``.
-It trains on one device: over a group or a mesh the tower's BN would need
-its statistics across ranks, which the port does not have, so the
-``Trainer`` refuses it there.
+GC-Net's stage computes its volume with gradient; the tower's backward,
+the volume's (``features.volume_backward``) aside, runs inside
+``regularizer.backward``. A stage that cannot train over a group or a mesh
+(GC-Net's: its tower's BN has no statistics across ranks) is refused there.
 
 Where the JAX package carries a ``TrainState`` through a jitted function,
 the port's ``Trainer`` owns its state and updates it in place: the model
@@ -29,9 +24,8 @@ Parity elements (reference main_msnet.py):
     optax and torch both place it; the lr is set on the parameter group at
     every step, as the JAX step injects it;
   * lr for epoch <= 200, then lr * 0.1 (``epoch_lr``);
-  * loss per dataset and model (MS-GCNet: smooth-L1, on KITTI 0.4
-    smooth-L1 + 0.6 MyLoss2; MS-PSMNet: its three heads weighted 0.2, 0.6
-    and 1.0, the last MyLoss2 on KITTI), metrics on the last head;
+  * loss per dataset and model (``loss.train_loss``), metrics on the last
+    head;
   * ``remat``: the model recomputes its BN'd stages in the backward
     (``remat_scope`` for MS-PSMNet), each BN's running statistics updated
     once a step;
@@ -82,8 +76,7 @@ from typing import Callable, Dict, Optional, Tuple
 import torch
 
 from ..config import Config
-from ..models import build_model, compute_dtype, learned_features
-from ..ops.features import ms_features_train
+from ..models import build_model
 from ..ops.matchers import _div_const
 from ..parallel import mesh as pm
 from ..runtime import DeviceLike, resolve_device
@@ -140,25 +133,23 @@ class Trainer:
                 "the target's size. The JAX Trainer fails the same way "
                 "(MS-GCNet's depth assertion at init, MS-PSMNet's loss "
                 "shapes at the first step)")
-        self.learned = learned_features(cfg.model)
-        if self.learned and mesh is not None:
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.model = build_model(cfg.model, self.device,
+                                 torch.Generator().manual_seed(seed),
+                                 t.remat, t.remat_scope).train()
+        self.stage = self.model.STAGE(cfg, self.model)
+        if not self.stage.over_mesh and mesh is not None:
             raise NotImplementedError(
                 f"{cfg.model.name} trains on one device: its learned tower's "
                 "BatchNorm has no statistics across ranks, so a group or a "
                 "mesh is refused")
-        self.cfg = cfg
         self.mesh, self.data = mesh, data
         self.group = mesh.group if mesh is not None else None
         self.rank = pm.group_rank(self.group)
-        self.device = resolve_device(device)
-        self.dtype = compute_dtype(cfg.model)
-        self.model = build_model(cfg.model, self.device,
-                                 torch.Generator().manual_seed(seed),
-                                 t.remat, t.remat_scope).train()
         self.optimizer = make_optimizer(self.model.parameters(), t.lr)
         self.step = 0
         self.is_kitti = cfg.data.kitti2012 or cfg.data.kitti2015
-        self.is_psmnet = cfg.model.name == "MS-PSMNet"
         self._async_ckpt: Optional[ckpt.AsyncCheckpointer] = None
         pm.broadcast_module(self.model, self.group)
 
@@ -179,24 +170,10 @@ class Trainer:
     def features(self, iml: torch.Tensor, imr: torch.Tensor, board_h: int,
                  bwl: int, bwr: int,
                  dtype: Optional[torch.dtype] = None) -> torch.Tensor:
-        """uint8 [N, h, w] crops (margins included) on the device -> the
-        feature volume [N, C, D, H, W] in ``dtype`` (the compute dtype by
-        default); one ``ms_features_train`` per sample. A learned stage
-        takes uint8 RGB [N, h, w, 3] crops with no margins and gives its
-        volume in the compute dtype, with the graph to its weights (when
-        gradients are enabled)."""
-        if self.learned:
-            if (board_h, bwl, bwr) != (0, 0, 0):
-                raise ValueError(
-                    f"{self.cfg.model.name} takes crops with no margins, got "
-                    f"(board_h, bwl, bwr) = {(board_h, bwl, bwr)}")
-            with span("features"):
-                return self.model.features(iml, imr)
-        m = self.cfg.matching
-        with torch.no_grad(), span("features"):
-            return torch.stack([ms_features_train(
-                a, b, self.cfg.model.max_disp, m, board_h, bwl, bwr,
-                m.left_only, dtype or self.dtype) for a, b in zip(iml, imr)])
+        """uint8 crops (margins included) on the device -> the model's
+        stage's volume [N, C, D, H, W] in ``dtype`` (default: compute)."""
+        with span("features"):
+            return self.stage.train(iml, imr, board_h, bwl, bwr, dtype)
 
     def _micro(self, iml, imr, target, geometry):
         """features -> model -> loss -> gradients (added into .grad) for one
@@ -207,17 +184,13 @@ class Trainer:
             feats = pm.shard_volume(feats, self.mesh)
         with span("regularizer.forward"):
             out = self.model(feats)
-        disp = out[-1] if self.is_psmnet else out
         if self.mesh is not None:
-            target = pm.shard_volume(target, self.mesh, disp.spec)
+            target = pm.shard_volume(target, self.mesh,
+                                     L.disparity(out).spec)
         with span("trainer.loss"):
             mask = L.train_valid_mask(target, max_disp)
-            if self.is_psmnet:
-                loss = L.psmnet_loss(*out, target, mask, self.is_kitti,
-                                     t.loss2_thresh, t.loss2_alpha)
-            else:
-                loss = L.gcnet_loss(disp, target, mask, self.is_kitti,
-                                    t.loss2_thresh, t.loss2_alpha)
+            loss, disp = L.train_loss(out, target, mask, self.is_kitti,
+                                      t.loss2_thresh, t.loss2_alpha)
         with span("regularizer.backward"):
             loss.backward()
         with torch.no_grad(), span("trainer.metrics"):
@@ -292,9 +265,9 @@ class Trainer:
         """(iml, imr) -> argmin over disparity of the four matching-cost
         channels, float32 [N, 4, H, W]: the reference's feature-quality
         images (main_msnet.py:443-458). Recomputes the feature stage in
-        bfloat16, so call it on summary steps only. A learned stage has no
-        matching-cost channels, so it is refused."""
-        if self.learned:
+        bfloat16, so call it on summary steps only. A stage with no
+        matching-cost channels (GC-Net's) is refused."""
+        if not self.stage.probes:
             raise ValueError(f"{self.cfg.model.name} has a learned feature "
                              "stage: there are no matching-cost channels "
                              "to probe")

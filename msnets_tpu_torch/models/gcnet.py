@@ -61,14 +61,17 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from .layers import (Conv3DBlock, ConvBN3D, DeconvBN3D, he_normal_,
-                     one_channel_conv, remat, soft_argmin, to_ndhwc)
+from ..ops.features import MatchingStage
+from .layers import (Conv3DBlock, ConvBN3D, DeconvBN3D, compute_dtype,
+                     he_normal_, one_channel_conv, remat, soft_argmin,
+                     to_ndhwc)
 from .quant import QUANT_SCOPES, QuantSite
 
 
 class MSGCNet(nn.Module):
     # children that serving keeps in float32 (the head)
     FLOAT32_CHILDREN = ("deconv5",)
+    STAGE = MatchingStage     # where its volume comes from
 
     def __init__(self, max_disp: int = 192, in_channels: int = 8,
                  num_filters: int = 32,
@@ -102,6 +105,18 @@ class MSGCNet(nn.Module):
         self.deconv5 = nn.ConvTranspose3d(Fn, 1, 3, stride=s, padding=1,
                                           output_padding=s - 1)
         self.reset_parameters(generator)
+
+    @classmethod
+    def from_config(cls, m, generator=None, remat=False, remat_scope="all"):
+        """The model of ModelConfig ``m`` (``remat_scope`` is MS-PSMNet's)."""
+        return cls(m.max_disp, m.in_channels, m.base_filters, generator,
+                   compute_dtype=compute_dtype(m), remat=remat,
+                   quarter_input=m.quarter_input, quant_eval=m.quant_eval,
+                   quant_mode=m.quant_mode, quant_scope=m.quant_scope)
+
+    @classmethod
+    def quant_sites_of(cls, m) -> Tuple[QuantSite, ...]:
+        return cls.quant_sites(m.quant_scope)
 
     @staticmethod
     def quant_sites(quant_scope: str = "all") -> Tuple[QuantSite, ...]:

@@ -21,9 +21,10 @@ float32 statistics (``layers.ConvBN2D``); eval folds them
 
 ``features(left, right)`` gives the volume (spans ``features.unary`` and
 ``features.volume``; the caller's ``features`` span around both);
-``forward(volume)`` is MS-GCNet's. State_dict keys are ``unary.*``
-(``conv1.{0,1}``, ``blocks.{i}.convbn_{1,2}.{0,1}``, ``conv_out``) and
-MS-GCNet's own.
+``forward(volume)`` is MS-GCNet's; ``TowerStage`` is ``features`` as the
+server and the trainer take a feature stage. State_dict keys are
+``unary.*`` (``conv1.{0,1}``, ``blocks.{i}.convbn_{1,2}.{0,1}``,
+``conv_out``) and MS-GCNet's own.
 """
 from __future__ import annotations
 
@@ -73,10 +74,39 @@ class UnaryTower(nn.Module):
                         padding=1)
 
 
+class TowerStage:
+    """GC-Net's stage (``ops.features.MatchingStage`` answers the same):
+    RGB pairs, the model's own ``features``, crops with no margins. It
+    trains on one device (the tower's BN has no statistics across ranks)
+    and has no matching-cost channels to probe."""
+    pixel = (3,)
+    pairs = "RGB [H, W, 3]"
+    over_mesh = probes = False
+
+    @staticmethod
+    def channels(matching) -> int:
+        return 2 * 32       # 2F, F = 32 (arXiv:1703.04309, Table 1)
+
+    def __init__(self, cfg, model: "GCNet"):
+        self.model = model
+
+    def serve(self, iml: torch.Tensor, imr: torch.Tensor) -> torch.Tensor:
+        return self.model.features(iml[None], imr[None])[0]
+
+    def train(self, iml, imr, board_h: int, bwl: int, bwr: int,
+              dtype=None) -> torch.Tensor:
+        if (board_h, bwl, bwr) != (0, 0, 0):
+            raise ValueError(
+                f"GC-Net takes crops with no margins, got "
+                f"(board_h, bwl, bwr) = {(board_h, bwl, bwr)}")
+        return self.model.features(iml, imr)
+
+
 class GCNet(MSGCNet):
     """GC-Net: ``UnaryTower`` and the concat volume before MS-GCNet's
     regularizer (module docstring). The tower is ``in_channels / 2`` wide
     (F); the rest as ``MSGCNet`` takes it."""
+    STAGE = TowerStage
 
     def __init__(self, max_disp: int = 192, in_channels: int = 64,
                  num_filters: int = 32,

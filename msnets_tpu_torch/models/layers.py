@@ -67,6 +67,14 @@ from ..parallel.mesh import (all_reduce_max, all_reduce_sum, group_size,
 from .quant import NDHWC, QuantConv3d, QuantSite, is_ndhwc, kernel
 
 _COUNT_LOCK = threading.Lock()    # servers call from several threads
+_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+def compute_dtype(model_cfg) -> torch.dtype:
+    """A ``ModelConfig``'s ``compute_dtype`` as a torch dtype."""
+    if model_cfg.compute_dtype not in _DTYPES:
+        raise ValueError(f"compute_dtype={model_cfg.compute_dtype!r}")
+    return _DTYPES[model_cfg.compute_dtype]
 
 
 def he_normal_(weight: torch.Tensor, out_channels: int,

@@ -56,9 +56,10 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from .layers import (ConvBN3D, DeconvBN3D, he_normal_, one_channel_conv,
-                     remat, resize_trilinear_align_corners, soft_argmin,
-                     to_ndhwc)
+from ..ops.features import MatchingStage
+from .layers import (ConvBN3D, DeconvBN3D, compute_dtype, he_normal_,
+                     one_channel_conv, remat, resize_trilinear_align_corners,
+                     soft_argmin, to_ndhwc)
 from .quant import QuantSite
 
 REMAT_SCOPES = ("all", "hourglass")
@@ -112,6 +113,20 @@ class MSPSMNet(nn.Module):
     # children that serving keeps in float32: none (the upsample and the
     # softmax cast to float32 themselves)
     FLOAT32_CHILDREN: Tuple[str, ...] = ()
+    STAGE = MatchingStage     # where its volume comes from
+
+    @classmethod
+    def from_config(cls, m, generator=None, remat=False, remat_scope="all"):
+        """The model of ModelConfig ``m``, upscaling by 4 on a quarter
+        input."""
+        return cls(m.max_disp, m.in_channels, m.base_filters,
+                   4 if m.quarter_input else 2, generator, compute_dtype(m),
+                   remat, remat_scope, m.quant_eval, m.quant_mode,
+                   m.packed_eval_outer)
+
+    @classmethod
+    def quant_sites_of(cls, m) -> Tuple[QuantSite, ...]:
+        return cls.quant_sites(m.packed_eval_outer)
 
     @staticmethod
     def quant_sites(packed_eval_outer: bool = True) -> Tuple[QuantSite, ...]:

@@ -21,8 +21,8 @@ plain PyTorch.
 
 Two entry points: ``ms_features_test`` (the serving path: the padded
 full-resolution pair, downsampled and bordered by 10 px) and
-``ms_features_train`` (a train crop with its margins, downsampled; the
-trainer calls it once a sample).
+``ms_features_train`` (a train crop with its margins, downsampled), both
+behind ``MatchingStage``, the MS-Nets models' ``STAGE``.
 
 Each step is a span of the profiler's trace (``utils.profiling.span``):
 ``features.downsample``, then on 8 channels ``features.census_aml`` and
@@ -259,3 +259,32 @@ def ms_features_test(iml: torch.Tensor, imr: torch.Tensor, maxdisp: int,
         imr = torch.nn.functional.pad(imr, (b, b, b, b))
     return ms_features(iml, imr, maxdisp // s, cfg, b, b, b, left_only,
                        out_dtype)
+
+
+class MatchingStage:
+    """Grey pairs -> the volume of ``cfg.matching`` (``channels`` wide) in
+    the model's compute dtype: ``serve`` of a bucket-shaped pair, ``train``
+    of [N, h, w] crops with margins, a sample at a time, with no gradient.
+    It trains over a mesh and has matching-cost channels to probe."""
+    pixel: Tuple[int, ...] = ()
+    pairs = "grey [H, W]"
+    over_mesh = probes = True
+
+    @staticmethod
+    def channels(matching: MatchingConfig) -> int:
+        return matching.feature_channels
+
+    def __init__(self, cfg, model):
+        self.m, self.max_disp = cfg.matching, cfg.model.max_disp
+        self.dtype = model.compute_dtype
+
+    def serve(self, iml: torch.Tensor, imr: torch.Tensor) -> torch.Tensor:
+        return ms_features_test(iml, imr, self.max_disp, self.m,
+                                self.m.left_only, self.dtype)
+
+    @torch.no_grad()
+    def train(self, iml, imr, board_h: int, bwl: int, bwr: int,
+              dtype=None) -> torch.Tensor:
+        return torch.stack([ms_features_train(
+            a, b, self.max_disp, self.m, board_h, bwl, bwr, self.m.left_only,
+            dtype or self.dtype) for a, b in zip(iml, imr)])

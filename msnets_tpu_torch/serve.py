@@ -1,11 +1,13 @@
 """Shape-bucketed stereo serving on the GPU (counterpart of
 ``msnets_tpu/serve.py``).
 
-A request is a uint8 [H, W] pair, or [H, W, 3] RGB for a model with a
-learned feature stage (GC-Net, ``models.learned_features``). It is
-zero-padded on top and right to a bucket shape (``pick_bucket``), goes
-through the feature stage and the model on the device, and the disparity is
-cropped back to [H, W]. A pair of the other kind raises ``ValueError``.
+A request is a uint8 pair of the kind the model's feature stage takes (its
+``STAGE``; the server never asks which model it runs): grey [H, W] for the
+matching space of ``cfg.matching`` (``in_channels`` must be its
+``feature_channels``), RGB [H, W, 3] for GC-Net's tower. It is zero-padded
+on top and right to a bucket shape (``pick_bucket``), goes through the
+feature stage and the model on the device, and the disparity is cropped
+back to [H, W]; a pair of another kind raises ``ValueError``.
 
 Two bucketing modes, as in the JAX server:
 
@@ -16,27 +18,16 @@ Two bucketing modes, as in the JAX server:
   the padded band's features are non-zero, so outputs near the top and
   right edge shift slightly.
 
-The feature stage follows ``cfg.matching``: the 8-channel matching space
-(the default), the 16-channel left+right one (``num_channels=16``) or the
-2-channel raw-intensity volume (``features_mode="raw"``); the model's
-``in_channels`` must be ``cfg.matching.feature_channels``. GC-Net computes
-its own volume (``GCNet.features``: the unary tower, folded and cast as
-the regularizer is, and the concat volume) and ignores ``cfg.matching``.
-
-The server runs MS-GCNet, MS-PSMNet or GC-Net (``cfg.model.name``) in
-``cfg.model.compute_dtype``. In bfloat16 the BatchNorm affines are folded
+The model runs in ``cfg.model.compute_dtype``, its BatchNorm affines folded
 into the conv and deconv weights in float32 and cast once (the JAX eval
-math); the children a model names in ``FLOAT32_CHILDREN`` stay float32
-(MS-GCNet's head, deconv5; MS-PSMNet casts to float32 for its upsample and
-softmax itself), and so do the int8 convs' folded kernels and biases.
+math; ``layers.cast_eval_model`` keeps a model's ``FLOAT32_CHILDREN`` and
+the int8 convs' kernels float32).
 
 With ``cfg.model.quant_eval`` the flagged convs run int8 (``models/quant.py``)
 in ``cfg.model.quant_mode``. ``quant_stats`` is the JAX ``quant_stats``
-collection as ``{dotted path: absmax}`` (``convert.quant_stats_from_jax``);
-the checkpoints never hold it. As in the JAX server an all-zero mapping
-counts as uncalibrated, and under "static" a zero layer or no calibration
-raises ``ValueError``. ``set_quant_mode("calib")`` makes requests record
-each conv's input absmax (``quant_stats()``), which is how the Evaluator
+collection as ``{dotted path: absmax}`` (``convert.quant_stats_from_jax``),
+which the checkpoints never hold, checked as the JAX server checks it
+(``_checked_quant_stats``); ``set_quant_mode("calib")`` is how the Evaluator
 calibrates.
 
 Over a mesh (``StereoServer(..., mesh=parallel.make_mesh((1, S, P)))``, one
@@ -54,8 +45,10 @@ Throughput comes from pipelining (``predict_stream``): up to ``depth`` frames
 are in flight. The host pads frame k+1 into a pinned buffer and queues its
 copy and forward on the compute stream while the device runs frame k; the
 disparity is copied back into a pinned buffer on a copy stream that waits
-on an event recorded after the forward, and a fetcher thread waits on the
-copies and crops the results.
+on an event recorded after the forward. With ``depth`` frames in flight a
+launch first finishes the oldest (waits for its copy, crops it), then
+queues its own, and only then is the result yielded, so the device has work
+while the consumer takes it.
 
 Usage:
     server = StereoServer(cfg, state_dict)        # or .from_checkpoint(...)
@@ -69,12 +62,10 @@ Where the time goes: serve under ``utils.profiling.trace(logdir)`` and open
 and the device's kernels and copies, on the same clock, it holds the
 program's spans (``msn.*``; ``utils/profiling.py`` lists them): a request is
 a ``server.predict`` (blocking) or ``server.launch`` (a stream frame) with
-``server.pad``, ``server.slot_wait``, ``server.h2d``, ``features`` and its
-matchers, ``regularizer``, ``server.d2h`` and ``server.crop`` inside. With
-no profiler recording a span costs a flag check. A span is recorded only on
-a thread that existed when the profiler started: the stream's fetcher,
-which the stream starts, records none (it launches no device work; its
-waits show as the launching thread's ``server.slot_wait``).
+``server.pad``, ``server.slot_wait`` (a stream frame's wait for the oldest
+in flight), ``server.h2d``, ``features`` and its matchers, ``regularizer``,
+``server.d2h`` and ``server.crop`` inside. With no profiler recording a span
+costs a flag check.
 
 ``stats()`` counts since construction:
   * ``frames``: frames served (blocking and streamed); ``bucket_hits`` the
@@ -83,27 +74,25 @@ waits show as the launching thread's ``server.slot_wait``).
   * ``cold_frames``: frames served in a bucket ``warmup`` did not run; the
     first of each pays cuDNN's choice of plans and the allocator's growth
     (the JAX server's ``compiles``);
-  * ``slot_waits``, ``slot_wait_s``: stream launches that found every slot
-    of their bucket in flight, and the seconds they blocked until the
-    fetcher released one: nonzero when the launches run ahead of the
-    device by ``depth`` frames.
+  * ``slot_waits``, ``slot_wait_s``: stream launches that found ``depth``
+    frames in flight, and the seconds they took to finish the oldest
+    (waiting for its copy back, cropping it), which frees its slot.
 """
 from __future__ import annotations
 
-import queue
+import collections
 import threading
 import time
-from typing import Dict, Iterable, Iterator, Mapping, Optional, Sequence, Tuple
+from typing import (Dict, Iterable, Iterator, List, Mapping, Optional,
+                    Sequence, Tuple)
 
 import numpy as np
 import torch
 
 from .config import Config
-from .models import (build_model, compute_dtype, fold_batchnorm,
-                     learned_features)
+from .models import build_model, compute_dtype, fold_batchnorm
 from .models import quant as Q
 from .models.layers import cast_eval_model
-from .ops.features import ms_features_test
 from .parallel import mesh as pm
 from .runtime import DeviceLike, resolve_device
 from .utils.profiling import span
@@ -184,7 +173,7 @@ class StereoServer:
     PyTorch's); under a mesh the forwards of one rank run one at a time,
     and every rank must make the same calls in the same order (SPMD).
     ``predict_stream`` is the pipelined bulk path, with up to ``depth``
-    frames in flight."""
+    frames in flight; a server runs one stream at a time."""
 
     def __init__(self, cfg: Config, state_dict: Mapping[str, torch.Tensor],
                  buckets: Optional[Sequence[Tuple[int, int]]] = None,
@@ -196,15 +185,13 @@ class StereoServer:
         self.buckets = tuple(tuple(b) for b in buckets) if buckets else None
         self.depth = max(1, depth)
         self.dtype = compute_dtype(cfg.model)
-        self.learned = learned_features(cfg.model)
-        # a pixel's shape: RGB for a learned stage, grey otherwise
-        self.pixel: Tuple[int, ...] = (3,) if self.learned else ()
         stats = _checked_quant_stats(cfg, quant_stats)
         model = build_model(cfg.model, self.device)
         model.load_state_dict(state_dict)
         self.model = cast_eval_model(fold_batchnorm(model), self.dtype)
         if stats is not None:
             Q.load_quant_stats(self.model, stats)
+        self.stage = self.model.STAGE(cfg, self.model)
         self.mesh = mesh
         if mesh is not None:
             pm.broadcast_module(self.model, mesh.group)
@@ -214,7 +201,7 @@ class StereoServer:
         self._stats = {"frames": 0, "bucket_hits": {}, "cold_frames": 0,
                        "slot_waits": 0, "slot_wait_s": 0.0}
         self._warm = set()
-        self._slots: Dict[Tuple[int, int], "queue.Queue[_Slot]"] = {}
+        self._slots: Dict[Tuple[int, int], List[_Slot]] = {}
         self._copy_stream = (torch.cuda.Stream(self.device)
                              if self.device.type == "cuda" else None)
 
@@ -241,15 +228,10 @@ class StereoServer:
         return Q.quant_stats(self.model, recorded)
 
     def features(self, iml: torch.Tensor, imr: torch.Tensor) -> torch.Tensor:
-        """Device uint8 bucket-shaped pair ([H, W], or [H, W, 3] for a
-        learned stage) -> feature volume [C, D, H, W] in the compute
-        dtype."""
-        m = self.cfg.matching
+        """Device uint8 bucket-shaped pair of the stage's kind -> feature
+        volume [C, D, H, W] in the compute dtype."""
         with span("features"):
-            if self.learned:
-                return self.model.features(iml[None], imr[None])[0]
-            return ms_features_test(iml, imr, self.cfg.model.max_disp, m,
-                                    m.left_only, self.dtype)
+            return self.stage.serve(iml, imr)
 
     @torch.inference_mode()
     def forward(self, iml: torch.Tensor, imr: torch.Tensor) -> torch.Tensor:
@@ -273,8 +255,8 @@ class StereoServer:
         todo = list(self.buckets or ()) + [
             pick_bucket(h, w, self.buckets, enc) for h, w in shapes]
         for bucket in todo:
-            zero = torch.zeros(tuple(bucket) + self.pixel, dtype=torch.uint8,
-                               device=self.device)
+            zero = torch.zeros(tuple(bucket) + self.stage.pixel,
+                               dtype=torch.uint8, device=self.device)
             self.forward(zero, zero)
             with self._lock:
                 self._warm.add(tuple(bucket))
@@ -288,23 +270,24 @@ class StereoServer:
             hits = self._stats["bucket_hits"]
             hits[bucket] = hits.get(bucket, 0) + 1
 
-    def _frame(self, iml: np.ndarray, imr: np.ndarray) -> Tuple[int, int]:
-        """(H, W) of a pair of the model's kind (module docstring)."""
-        if iml.shape != imr.shape or iml.shape[2:] != self.pixel:
-            kind = "RGB [H, W, 3]" if self.learned else "grey [H, W]"
-            raise ValueError(f"{self.cfg.model.name} takes {kind} pairs of "
-                             f"one shape, got {iml.shape} and {imr.shape}")
-        return iml.shape[:2]
+    def _pad(self, iml: np.ndarray, imr: np.ndarray):
+        """A pair of the stage's kind (module docstring) -> (H, W, its
+        bucket, the pair padded to it)."""
+        if iml.shape != imr.shape or iml.shape[2:] != self.stage.pixel:
+            raise ValueError(f"{self.cfg.model.name} takes "
+                             f"{self.stage.pairs} pairs of one shape, got "
+                             f"{iml.shape} and {imr.shape}")
+        h, w = iml.shape[:2]
+        with span("server.pad"):
+            bucket = pick_bucket(h, w, self.buckets,
+                                 self.cfg.model.encoder_ds)
+            return (h, w, bucket) + pad_to_bucket(iml, imr, bucket)
 
     def predict(self, iml: np.ndarray, imr: np.ndarray) -> np.ndarray:
-        """One frame, blocking: uint8 [H, W] pair ([H, W, 3] for a learned
-        stage) -> float32 [H, W] disparity at the original resolution."""
+        """One frame, blocking: a uint8 pair of the stage's kind -> float32
+        [H, W] disparity at the original resolution."""
         with span("server.predict"):
-            h, w = self._frame(iml, imr)
-            with span("server.pad"):
-                bucket = pick_bucket(h, w, self.buckets,
-                                     self.cfg.model.encoder_ds)
-                il, ir = pad_to_bucket(iml, imr, bucket)
+            h, w, bucket, il, ir = self._pad(iml, imr)
             with span("server.h2d"):
                 il = torch.from_numpy(il).to(self.device)
                 ir = torch.from_numpy(ir).to(self.device)
@@ -318,38 +301,30 @@ class StereoServer:
     # -- pipelined stream -------------------------------------------------
 
     def _slot(self, bucket: Tuple[int, int]) -> _Slot:
-        """A free slot of ``bucket``'s pool of ``depth``; blocks until the
-        fetcher has released one."""
-        with self._lock:
-            pool = self._slots.get(bucket)
-            if pool is None:
-                pool = self._slots[bucket] = queue.Queue()
-                for _ in range(self.depth):
-                    pool.put(_Slot(bucket, self.device.type == "cuda",
-                                   self.pixel))
-        try:
-            return pool.get_nowait()
-        except queue.Empty:
-            pass
-        t0 = time.perf_counter()
-        with span("server.slot_wait"):
-            slot = pool.get()
-        waited = time.perf_counter() - t0
-        with self._lock:
-            self._stats["slot_waits"] += 1
-            self._stats["slot_wait_s"] += waited
-        return slot
+        """A free slot of ``bucket``'s pool of ``depth`` (one always is)."""
+        pool = self._slots.get(bucket)
+        if pool is None:
+            pool = self._slots[bucket] = [
+                _Slot(bucket, self.device.type == "cuda", self.stage.pixel)
+                for _ in range(self.depth)]
+        return pool.pop()
 
-    def _launch(self, iml: np.ndarray, imr: np.ndarray):
-        """Pad one frame into a slot and queue its host-to-device copy, its
-        forward and its device-to-host copy; returns (slot, copied event or
-        None on the CPU, h, w, bucket) without waiting for the device."""
+    def _launch(self, iml: np.ndarray, imr: np.ndarray,
+                flight: collections.deque, done: collections.deque):
+        """Pad a frame; while ``depth`` frames are in ``flight``, finish the
+        oldest into ``done`` (the slot wait); queue the frame's copies and
+        forward from a slot. Returns (slot, copied event or None on the
+        CPU, h, w, bucket) without waiting for the device."""
         with span("server.launch"):
-            h, w = self._frame(iml, imr)
-            with span("server.pad"):
-                bucket = pick_bucket(h, w, self.buckets,
-                                     self.cfg.model.encoder_ds)
-                il, ir = pad_to_bucket(iml, imr, bucket)
+            h, w, bucket, il, ir = self._pad(iml, imr)
+            if len(flight) >= self.depth:
+                t0 = time.perf_counter()
+                with span("server.slot_wait"):
+                    while len(flight) >= self.depth:
+                        done.append(self._finish(flight.popleft()))
+                with self._lock:
+                    self._stats["slot_waits"] += 1
+                    self._stats["slot_wait_s"] += time.perf_counter() - t0
             slot = self._slot(bucket)
             try:
                 with torch.inference_mode():
@@ -361,7 +336,7 @@ class StereoServer:
                     with span("server.d2h"):
                         copied = self._copy_back(slot, disp)
             except BaseException:
-                self._slots[bucket].put(slot)
+                self._slots[bucket].append(slot)
                 raise
             self._count(bucket)
             return slot, copied, h, w, bucket
@@ -381,74 +356,45 @@ class StereoServer:
             disp.record_stream(self._copy_stream)
             return self._copy_stream.record_event()
 
-    def _finish(self, slot: _Slot, copied, h: int, w: int,
-                bucket: Tuple[int, int]) -> np.ndarray:
-        """Wait for a launched frame's copy, crop its disparity and release
-        its slot."""
+    def _finish(self, frame):
+        """A launched frame's cropped disparity once its copy is done, its
+        slot released; or its error (the launch's, or the wait's)."""
+        if isinstance(frame, Exception):
+            return frame
+        slot, copied, h, w, bucket = frame
         try:
             if copied is not None:
                 copied.synchronize()
             # a copy: the slot's buffer is the next frame's
             return slot.out.numpy()[bucket[0] - h:, :w].copy()
+        except Exception as e:
+            return e
         finally:
-            self._slots[bucket].put(slot)
+            self._slots[bucket].append(slot)
 
     def predict_stream(self, pairs: Iterable[Tuple[np.ndarray, np.ndarray]]
                        ) -> Iterator[np.ndarray]:
         """Pipelined inference over uint8 pairs (as ``predict`` takes them),
-        up to ``depth`` frames in flight; yields float32 disparities in input order. A frame that
-        fails raises its error at its place in the order. Abandoning the
-        generator drains the frames in flight and stops the fetcher."""
-        q: "queue.Queue" = queue.Queue(maxsize=self.depth)
-        results: "queue.Queue" = queue.Queue()
-        done = object()
-
-        def fetcher():
-            # never stops draining q on an item's error: a producer blocked
-            # in q.put would otherwise wait forever
-            while True:
-                item = q.get()
-                if item is done:
-                    results.put(done)
-                    return
-                try:
-                    results.put(item if isinstance(item, Exception)
-                                else self._finish(*item))
-                except Exception as e:
-                    results.put(e)
-
-        thread = threading.Thread(target=fetcher, name="predict_stream fetcher",
-                                  daemon=True)
-        thread.start()
-        pending = 0
-
-        def next_result():
-            r = results.get()
-            if isinstance(r, Exception):
-                raise r
-            return r
-
+        up to ``depth`` frames in flight; yields float32 disparities in
+        input order. A frame that fails raises its error at its place in
+        the order. On every way out (the end, an error, the consumer
+        abandoning the generator) the frames in flight are finished and
+        their slots returned."""
+        flight = collections.deque()   # launched frames or launch errors
+        done = collections.deque()     # their results, in input order
         try:
             for iml, imr in pairs:
                 try:
-                    item = self._launch(iml, imr)
+                    flight.append(self._launch(iml, imr, flight, done))
                 except Exception as e:            # this frame's result
-                    item = e
-                q.put(item)
-                pending += 1
-                while pending > self.depth and not results.empty():
-                    pending -= 1
-                    yield next_result()
-            while pending:
-                pending -= 1
-                yield next_result()
+                    flight.append(e)
+                while done:
+                    yield _result(done.popleft())
+            while flight:
+                yield _result(self._finish(flight.popleft()))
         finally:
-            # normal end, an error, or the consumer abandoning the generator
-            # (GeneratorExit): stop the fetcher after the frames in flight
-            q.put(done)
-            while results.get() is not done:
-                pass
-            thread.join()
+            while flight:
+                self._finish(flight.popleft())
 
     def stats(self) -> Dict:
         with self._lock:
@@ -458,3 +404,10 @@ class StereoServer:
                     "cold_frames": self._stats["cold_frames"],
                     "slot_waits": self._stats["slot_waits"],
                     "slot_wait_s": self._stats["slot_wait_s"]}
+
+
+def _result(r):
+    """A finished frame's disparity, or its error raised."""
+    if isinstance(r, Exception):
+        raise r
+    return r

@@ -20,14 +20,11 @@ The spans, by layer (the first component after ``msn.``):
     on 8 channels ``features.census_aml`` and ``features.matchers``, on 16
     channels ``features.census``, ``features.ncc``, ``features.zsad``,
     ``features.sobel_sad`` and ``features.assemble`` (``ops/features.py``);
-    GC-Net's learned stage has ``features.unary`` (the tower on both
-    views) and ``features.volume`` (the concat volume) inside
-    ``features`` (``models/gcnet_kendall.py``), and in training
-    ``features.volume_backward``, opened on autograd's thread inside the
-    volume's backward (``ops/volume.py``; counters
-    ``concat_volume.launches``, one a volume built, and
-    ``concat_volume.bytes``); the tower's own backward has no span and
-    runs inside ``regularizer.backward``;
+    GC-Net's stage has ``features.unary`` and ``features.volume``
+    (``models/gcnet_kendall.py``), and in training
+    ``features.volume_backward`` on autograd's thread (``ops/volume.py``,
+    with its counters); its tower's backward runs inside
+    ``regularizer.backward``;
   * regularizer: ``regularizer`` (the model when serving),
     ``regularizer.forward`` and ``regularizer.backward`` (training); its
     entry copies the volume into NDHWC (``models/layers.py``; counters
@@ -38,8 +35,8 @@ The spans, by layer (the first component after ``msn.``):
     mesh) and ``trainer.optimizer`` (``engine/trainer.py``).
 
 A span is recorded on the thread the profiler was started on and on the
-threads that existed then; a thread started inside the profiled block
-(such as ``predict_stream``'s fetcher) sees no profiler and records none.
+threads that existed then; a thread started inside the profiled block sees
+no profiler and records none (``predict_stream`` starts none).
 """
 from __future__ import annotations
 

@@ -112,6 +112,19 @@ def test_args_to_config_matches_jax(name):
             assert fields == want[section], section
 
 
+def test_gcnet_volume_is_the_published_width():
+    """--model_name GC-Net takes in_channels from its own stage, 2F = 64
+    (arXiv:1703.04309 Table 1), not the matching space's 8: its tower is
+    32 wide."""
+    from msnets_tpu_torch.models import build_model
+    cfg = cli.args_to_config(cli.build_parser().parse_args(
+        ["--model_name=GC-Net"]))
+    assert cfg.model.in_channels == 64
+    model = build_model(cfg.model, "cpu")
+    assert model.unary.conv_out.out_channels == 32
+    assert model.conv3dbn_1[0].in_channels == 64
+
+
 def test_seed_defaults_from_the_clock():
     c = cli.args_to_config(cli.build_parser().parse_args([]))
     assert 0 <= c.train.seed < 2 ** 31

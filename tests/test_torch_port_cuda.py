@@ -372,7 +372,7 @@ def test_predict_stream_on_the_card_equals_predict(cuda):
         torch.backends.cudnn.deterministic = prev
     for d, w in zip(got, want):
         np.testing.assert_array_equal(d, w)
-    assert {b: q.qsize() for b, q in srv._slots.items()} == \
+    assert {b: len(pool) for b, pool in srv._slots.items()} == \
         {(64, 128): 2, (96, 160): 2, (64, 96): 2}
 
 

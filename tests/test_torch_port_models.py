@@ -1,6 +1,8 @@
 """Port MS-GCNet (msnets_tpu_torch.models) against the JAX MSGCNet: weight
 conversion both ways, eval parity with randomized BatchNorm statistics, BN
-folding, init and the model factory."""
+folding, init and the model factory: ``build_model`` through each class's
+``from_config`` against the constructor calls it replaced, and the train
+loss chosen by a model's heads (``engine.loss.train_loss``)."""
 import math
 
 import numpy as np
@@ -12,7 +14,9 @@ import torch
 from msnets_tpu.models import MSGCNet as JaxMSGCNet
 from msnets_tpu.models.torch_convert import convert_state_dict
 from msnets_tpu_torch.config import ModelConfig
-from msnets_tpu_torch.models import MSGCNet, build_model, fold_batchnorm
+from msnets_tpu_torch.engine import loss as L
+from msnets_tpu_torch.models import (GCNet, MSGCNet, MSPSMNet, build_model,
+                                     compute_dtype, fold_batchnorm)
 from msnets_tpu_torch.models.convert import state_dict_from_jax
 from msnets_tpu_torch.models.layers import soft_argmin
 
@@ -135,3 +139,94 @@ def test_state_dict_from_jax_rejects_psmnet():
         state_dict_from_jax({"params": {}, "batch_stats": {}}, "MS-PSMNet")
     with pytest.raises(ValueError):
         state_dict_from_jax({"params": {}, "batch_stats": {}}, "other")
+
+
+def _constructor_call(m, generator, remat, remat_scope):
+    """The constructor call ``build_model``'s former branch on the model's
+    name made, argument for argument."""
+    q = (m.quant_eval, m.quant_mode)
+    if m.name == "MS-PSMNet":
+        return MSPSMNet(m.max_disp, m.in_channels, m.base_filters,
+                        4 if m.quarter_input else 2, generator,
+                        compute_dtype(m), remat, remat_scope, *q,
+                        m.packed_eval_outer)
+    if m.name == "GC-Net":
+        return GCNet(m.max_disp, m.in_channels, m.base_filters, generator,
+                     compute_dtype=compute_dtype(m), remat=remat,
+                     quarter_input=m.quarter_input, quant_eval=q[0],
+                     quant_mode=q[1], quant_scope=m.quant_scope)
+    return MSGCNet(m.max_disp, m.in_channels, m.base_filters, generator,
+                   compute_dtype(m), remat, m.quarter_input, *q,
+                   m.quant_scope)
+
+
+def _settings(model):
+    """Each module's plain attributes: strides, upscale, remat, compute
+    dtype, int8 sites and modes."""
+    return {name: {k: v for k, v in vars(mod).items()
+                   if not k.startswith("_") and not callable(v)}
+            for name, mod in model.named_modules()}
+
+
+SMALL = dict(max_disp=32, base_filters=8, compute_dtype="float32")
+SEAM = {
+    "MS-GCNet": (ModelConfig(**SMALL), False, "all"),
+    "MS-PSMNet": (ModelConfig(name="MS-PSMNet", **SMALL), True, "hourglass"),
+    "GC-Net": (ModelConfig(name="GC-Net", in_channels=16, **SMALL), True,
+               "all"),
+    "MS-GCNet-quarter": (ModelConfig(quarter_input=True, **SMALL), False,
+                         "all"),
+    "MS-PSMNet-quarter": (ModelConfig(name="MS-PSMNet", quarter_input=True,
+                                      **SMALL), False, "all"),
+    "MS-GCNet-int8-stem": (ModelConfig(quant_eval=True, quant_mode="static",
+                                       quant_scope="stem", **SMALL), False,
+                           "all"),
+    "MS-PSMNet-int8": (ModelConfig(name="MS-PSMNet", quant_eval=True,
+                                   packed_eval_outer=False,
+                                   compute_dtype="bfloat16", max_disp=32,
+                                   base_filters=8), False, "all"),
+    "GC-Net-int8-quarter": (ModelConfig(name="GC-Net", in_channels=16,
+                                        quant_eval=True, quarter_input=True,
+                                        **SMALL), False, "all"),
+}
+
+
+@pytest.mark.parametrize("name", list(SEAM))
+def test_build_model_is_the_constructor_call_it_replaced(name):
+    """Same class, module tree (quantized convs, strides, upscale and remat
+    included), state_dict keys, shapes and drawn weights from the same
+    generator seed."""
+    m, remat, scope = SEAM[name]
+    got = build_model(m, "cpu", torch.Generator().manual_seed(7), remat,
+                      scope)
+    want = _constructor_call(m, torch.Generator().manual_seed(7), remat,
+                             scope).eval()
+    assert type(got) is type(want)
+    assert repr(got) == repr(want)
+    assert _settings(got) == _settings(want)
+    a, b = got.state_dict(), want.state_dict()
+    assert list(a) == list(b)
+    for k in a:
+        assert a[k].shape == b[k].shape and a[k].dtype == b[k].dtype, k
+        assert torch.equal(a[k], b[k]), k
+
+
+def _heads(n, seed):
+    g = torch.Generator().manual_seed(seed)
+    return tuple(torch.rand((2, 8, 16), generator=g) * 40 for _ in range(n))
+
+
+@pytest.mark.parametrize("heads", [1, 3])
+@pytest.mark.parametrize("kitti", [False, True])
+def test_train_loss_is_the_loss_of_the_heads(heads, kitti):
+    """One map takes ``gcnet_loss``, three heads ``psmnet_loss``, bit for
+    bit, and the disparity is the map or the last head."""
+    out = _heads(heads, 1)
+    target = _heads(1, 2)[0]
+    mask = L.train_valid_mask(target, 32)
+    got, disp = L.train_loss(out if heads == 3 else out[0], target, mask,
+                             kitti, 3.0, 2.0)
+    want = (L.psmnet_loss(*out, target, mask, kitti, 3.0, 2.0) if heads == 3
+            else L.gcnet_loss(out[0], target, mask, kitti, 3.0, 2.0))
+    assert torch.equal(got, want)
+    assert disp is out[-1]

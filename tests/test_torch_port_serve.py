@@ -142,12 +142,6 @@ def _stream_pairs(shapes, seed):
              rng.integers(0, 256, s, dtype=np.uint8)) for s in shapes]
 
 
-def _fetchers():
-    import threading
-    return [t for t in threading.enumerate()
-            if t.name == "predict_stream fetcher" and t.is_alive()]
-
-
 @pytest.mark.parametrize("depth", [1, 2, 3])
 def test_predict_stream_order_and_values(state_dict, depth):
     """Mirrors tests/test_serve.py::test_predict_stream_order_and_values, two
@@ -162,16 +156,15 @@ def test_predict_stream_order_and_values(state_dict, depth):
     for (iml, imr), d in zip(pairs, got):
         assert d.shape == iml.shape and d.dtype == np.float32
         np.testing.assert_array_equal(d, srv.predict(iml, imr))
-    assert {b: p.qsize() for b, p in srv._slots.items()} == \
+    assert {b: len(p) for b, p in srv._slots.items()} == \
         {(64, 128): depth, (96, 160): depth}
     assert srv.stats()["frames"] == 10
-    assert not _fetchers()
 
 
 def test_predict_stream_item_error_surfaces_in_order(state_dict):
     """A pair whose views differ in shape fails in its padding: the frames
     before it come out, then its error is raised, and the stream ends with
-    no thread left."""
+    every slot back in its pool."""
     srv = TS.StereoServer(_cfg(), state_dict, device="cpu", depth=2)
     pairs = _stream_pairs([(64, 128)] * 4, 3)
     pairs[2] = (pairs[2][0], pairs[2][1][:32])
@@ -182,15 +175,21 @@ def test_predict_stream_item_error_surfaces_in_order(state_dict):
         next(stream)
     with pytest.raises(StopIteration):
         next(stream)
-    assert not _fetchers()
-    assert srv._slots[(64, 128)].qsize() == 2
+    assert len(srv._slots[(64, 128)]) == 2
 
 
 def test_abandoned_stream_leaves_no_thread(state_dict):
+    """A stream abandoned with ``depth`` frames in flight (the first result
+    is yielded after the third frame's launch) finishes them on close: every
+    slot comes back, and the stream starts no thread."""
+    import threading
+    threads = threading.active_count()
     srv = TS.StereoServer(_cfg(), state_dict, device="cpu", depth=2)
     stream = srv.predict_stream(iter(_stream_pairs([(64, 128)] * 6, 4)))
     next(stream)
-    assert len(_fetchers()) == 1
+    assert len(srv._slots[(64, 128)]) == 0         # two frames in flight
+    assert srv.stats()["frames"] == 3
+    assert threading.active_count() == threads
     stream.close()                                 # GeneratorExit
-    assert not _fetchers()
-    assert srv._slots[(64, 128)].qsize() == 2
+    assert len(srv._slots[(64, 128)]) == 2
+    assert srv.stats()["frames"] == 3

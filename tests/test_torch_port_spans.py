@@ -109,7 +109,8 @@ def test_span_records_under_msn_and_nests(tmp_path):
 
 def test_span_in_a_thread_started_under_the_profiler_is_not_recorded(
         tmp_path):
-    """The documented limit: the stream's fetcher records no span."""
+    """The documented limit of ``span``: a thread started under the
+    profiler records none."""
     seen = {}
 
     def worker():
@@ -147,8 +148,9 @@ def _slow_finish(srv, seconds):
 
 
 def test_stream_spans_and_slot_waits(tmp_path):
-    """Depth 1 and a slow fetcher (a device still busy with the frame
-    before): the second frame's launch waits for the one slot."""
+    """Depth 1 and a slow ``_finish`` (a device still busy with the frame
+    before): the second frame's launch finishes the first inside its
+    ``server.slot_wait`` before it takes the one slot."""
     srv = _server(depth=1)
     _slow_finish(srv, 0.3)
     pairs = [_pair(60, 120, s) for s in range(2)]
