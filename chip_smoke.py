@@ -25,7 +25,12 @@ Phases, each of which fails the run on error:
                 and the training shape (140x352, D 96, margins 6/96/0), in
                 float32 (channels 0-4 exact, 5-7 atol 1e-6) and bfloat16
                 (one unit in the last place), and its profiler time, plain
-                time and bound at both;
+                time and bound at both; subpixel_soft_argmin (the served
+                MS-GCNet head) against its plain version in float64 at the
+                online cell's decoder output (1x32x96x192x624, stride 2)
+                and its quarter_input counterpart (stride 4), max |dd| 1e-3
+                px, then its time, the plain version's, the chain it
+                replaces (library_ms) and its bound at the online shape;
   4. features   a known-disparity pair through ms_features on the card, 8 and
                 16 channels: the census-AML channels (left 4, right 12) must
                 peak at the true disparity; matchers_aml launches once on 8
@@ -125,8 +130,10 @@ Phases, each of which fails the run on error:
  17. serve_mesh the eval forward over a (1, S, P) mesh (parallel/mesh.py,
                 parallel/halo.py): (a) Config() (bfloat16) over an NCCL
                 group of one rank under make_mesh((1, 1, 1)): 3 requests at
-                256x512 bit for bit the plain server's (cuDNN deterministic),
-                the collectives a request, census_aml once a request;
+                256x512 bit for bit the plain server's with the head a
+                mesh runs (the conv and soft_argmin; cuDNN deterministic),
+                the fused head's distance from it, the collectives a
+                request, census_aml once a request;
                 (b) ranks of this script sharing the card over gloo (CUDA
                 tensors), 2 at (1, 2, 1) then (1, 1, 2), then 4 at (1, 2, 2):
                 MS-GCNet and MS-PSMNet (max_disp 192, F=32, float32, TF32
@@ -412,6 +419,7 @@ def phase_kernel(state):
             assert bool((cost == 1.0).all()) and bool((aml == 0).all())
             assert bool((raw == INVALID).all())
     state["max_abs_err"] = worst
+    _head_kernel(state)
     for kernel in ("census_aml", "census"):
         for shape in TIMED_SHAPES:
             t = _time_kernel(kernel, *shape, rng, state["sfu_ops_per_s"])
@@ -496,6 +504,71 @@ def _matchers_kernel(state, rng):
         timed[name] = t
     state["max_abs_err"]["matchers_aml"] = worst
     state["matchers_aml"] = timed[MATCHERS_SHAPES[0][0]]
+
+
+# the serving head's shapes: the online cell's decoder output (384x1248,
+# D 192 from 96), and its quarter_input counterpart (stride 4)
+HEAD_SHAPES = [("online 384x1248 s2", (1, 32, 96, 192, 624), 2),
+               ("quarter 384x1248 s4", (1, 32, 24, 48, 156), 4)]
+
+
+def _head_kernel(state):
+    """subpixel_soft_argmin against its plain version in float64 at
+    HEAD_SHAPES (max |dd| <= 1e-3 px), then at the online shape its device
+    time, the plain version's (float32), the chain it replaces as
+    ``library_ms`` (the float32 copy, cuDNN's padded transposed conv and
+    ``soft_argmin``: the served head before it) and its bound: bytes (the
+    bf16 input read once, the disparity written) at HBM rate against 27
+    taps x C channels FMAs a voxel at the float32 rate."""
+    import torch
+    from msnets_tpu_torch.models.layers import conv_head
+    from msnets_tpu_torch.ops.cuda import subpixel_soft_argmin as SA
+    worst, g = 0.0, torch.Generator().manual_seed(0)
+    for name, shape, s in HEAD_SHAPES:
+        x = torch.randn(shape, generator=g).relu().to(
+            "cuda", torch.bfloat16, memory_format=torch.channels_last_3d)
+        k = (torch.randn((shape[1], 1, 3, 3, 3), generator=g)
+             * (2 / 27) ** 0.5).cuda()
+        got = SA.subpixel_soft_argmin(x, k, s, s * shape[2])
+        err = (got.double() - SA.subpixel_soft_argmin_reference(
+            x.double(), k.double(), s)).abs().max().item()
+        torch.cuda.synchronize()
+        worst = max(worst, err)
+        log(f"kernel subpixel_soft_argmin {name}: max|d| {err:.3g} px "
+            f"against float64")
+        assert err <= 1e-3, f"{name}: disparity off by {err} px"
+        if s != 2:
+            continue
+        run = lambda: SA.subpixel_soft_argmin(x, k, s, s * shape[2])  # noqa: E731
+        plain = lambda: SA.subpixel_soft_argmin_reference(x, k, s)   # noqa: E731
+        library = lambda: conv_head(x, k, s, s * shape[2])          # noqa: E731
+        for _ in range(3):
+            run()
+            library()
+        plain()
+        t = {"ms_events": cuda_time_ms(run, 20),
+             "plain_ms": cuda_time_ms(plain, 2),
+             "library_ms": cuda_time_ms(library, 10)}
+        t["ms"], t["timed_by"] = _profiled_ms(
+            {"k": run}, {"k": "subpixel_soft_argmin_kernel"})["k"]
+        n, c, d, h, w = shape
+        t["bytes"] = x.numel() * x.element_size() + got.numel() * 4
+        t["alu_ops"] = 2 * 27 * c * n * d * h * w
+        t["bytes_ms"] = t["bytes"] / HBM_BYTES_PER_S * 1e3
+        t["ops_ms"] = t["alu_ops"] / F32_OPS_PER_S * 1e3
+        t["bound_ms"] = max(t["bytes_ms"], t["ops_ms"])
+        t["bound_by"] = "bytes" if t["bytes_ms"] >= t["ops_ms"] else "operations"
+        log(f"subpixel_soft_argmin {name}: device {t['ms']:.4f} ms/call "
+            f"({t['timed_by']}), events {t['ms_events']:.4f} ms/call; plain "
+            f"{t['plain_ms']:.3f} ms; library (f32 copy, cuDNN deconv, "
+            f"soft_argmin) {t['library_ms']:.3f} ms; bound "
+            f"{t['bound_ms']:.4f} ms by {t['bound_by']}: bytes "
+            f"{t['bytes_ms']:.4f} ms ({t['bytes'] / 1e6:.1f} MB), operations "
+            f"{t['ops_ms']:.4f} ms ({t['alu_ops'] / 1e9:.2f} GFLOP at the "
+            f"float32 rate); {t['ms'] / t['bound_ms']:.2f}x the bound "
+            f"[{state['smi']}]")
+        state["subpixel_soft_argmin"] = t
+    state["max_abs_err"]["subpixel_soft_argmin"] = worst
 
 
 PHASE_DEFINES = ("MSN_PHASES=1",)
@@ -675,24 +748,30 @@ def _counted():
     from msnets_tpu_torch.ops.cuda.int8_quantize import (int8_absmax,
                                                          int8_quantize)
     from msnets_tpu_torch.ops.cuda.matchers_aml import matchers_aml
+    from msnets_tpu_torch.ops.cuda.subpixel_soft_argmin import (
+        subpixel_soft_argmin)
     return {"census_aml": census_aml, "census": census,
             "matchers_aml": matchers_aml, "int8_conv3d": int8_conv3d,
-            "int8_quantize": int8_quantize, "int8_absmax": int8_absmax}
+            "int8_quantize": int8_quantize, "int8_absmax": int8_absmax,
+            "subpixel_soft_argmin": subpixel_soft_argmin}
 
 
 def _counts():
     return {k: f.launches for k, f in _counted().items()}
 
 
-def _want(census_aml=0, census=0, int8_conv3d=0, int8_absmax=0):
+def _want(census_aml=0, census=0, int8_conv3d=0, int8_absmax=0, head=0):
     """The kernels' launch counts a path must show: each int8 conv
     quantizes its input once (int8_quantize, then the fused int8_conv3d);
     int8_absmax runs once an int8 conv in dynamic mode, never in static
     mode, and once a flagged conv in a calibration forward; matchers_aml
-    launches with census_aml, once an 8-channel sample."""
+    launches with census_aml, once an 8-channel sample; the served
+    MS-GCNet's head (subpixel_soft_argmin) once a forward of a server (the
+    Evaluator's too), never in training, over a mesh or in MS-PSMNet."""
     return {"census_aml": census_aml, "census": census,
             "matchers_aml": census_aml, "int8_conv3d": int8_conv3d,
-            "int8_quantize": int8_conv3d, "int8_absmax": int8_absmax}
+            "int8_quantize": int8_conv3d, "int8_absmax": int8_absmax,
+            "subpixel_soft_argmin": head}
 
 
 def _reset_counts():
@@ -764,7 +843,7 @@ def phase_serve(state):
     requests = [textured_pair(256, 512, 24 + 8 * i, i) for i in range(3)]
     requests.append(textured_pair(375, 1242, 40, 3))
     server, sd, launches, il, ir = _serve(
-        state, "serve", cfg, requests, _want(census_aml=1),
+        state, "serve", cfg, requests, _want(census_aml=1, head=1),
         (20, 5))
     state["launches_by_path"]["serve"] = launches
     state["state_dict"] = sd
@@ -831,7 +910,7 @@ def phase_serve16(state):
     requests = [textured_pair(256, 512, 24 + 8 * i, 20 + i) for i in range(3)]
     requests.append(textured_pair(375, 1242, 40, 23))
     server, sd, launches, il, ir = _serve(
-        state, "serve16", cfg, requests, _want(census=1),
+        state, "serve16", cfg, requests, _want(census=1, head=1),
         (20, 5))
     state["launches_by_path"]["serve16"] = launches
     _profile("serve16 256x512 forward", lambda: server.forward(il, ir))
@@ -844,7 +923,7 @@ def phase_serve_raw(state):
                  model=ModelConfig(in_channels=2))
     requests = [textured_pair(256, 512, 32, 30), textured_pair(375, 1242, 40, 31)]
     _, _, launches, _, _ = _serve(state, "serve_raw", cfg, requests,
-                                  _want(), (10, 3))
+                                  _want(head=1), (10, 3))
     state["launches_by_path"]["serve_raw"] = launches
 
 
@@ -1046,7 +1125,8 @@ def phase_stream(state):
         want = [server.predict(l, r) for l, r in pairs]
     finally:
         torch.backends.cudnn.deterministic = prev
-    assert launches == _want(census_aml=STREAM_REQUESTS), launches
+    assert launches == _want(census_aml=STREAM_REQUESTS,
+                             head=STREAM_REQUESTS), launches
     state["launches_by_path"]["stream"] = launches
     assert len(got) == STREAM_REQUESTS
     for d, w in zip(got, want):
@@ -1379,7 +1459,8 @@ def phase_cli(state):
         f"{scores['colour'][1]}; eval-badx {badx}; PFMs equal predict's bit "
         f"for bit: {same}; launches {launches} [{state['smi']}]")
     assert train_launches == _want(census_aml=2), train_launches
-    assert launches == _want(census_aml=2 + 2 * CLI_FRAMES), launches
+    assert launches == _want(census_aml=2 + 2 * CLI_FRAMES,
+                             head=2 * CLI_FRAMES), launches
     assert all(np.isfinite(v) for sc in scores.values() for v in sc), scores
     assert badx == scores["grey"], (badx, scores)
     assert all(same.values()), same
@@ -1423,8 +1504,9 @@ def phase_xdom(state):
         pngs = sorted((XDOM_ROOT / f"resB_{m}_3" / "dispColor").glob("*.png"))
         assert len(pngs) == 2, pngs
         assert png.rgb(png.decode(pngs[0].read_bytes())).shape == (375, 1242, 3)
-    # the ms arm: 2 steps of 2 samples, then 2 + 2 frames; raw none
-    assert launches == _want(census_aml=8), launches
+    # the ms arm: 2 steps of 2 samples, then 2 + 2 frames; raw none; the
+    # head: the 2 + 2 frames of each arm
+    assert launches == _want(census_aml=8, head=8), launches
     state["launches_by_path"]["xdom"] = launches
     shutil.rmtree(XDOM_ROOT, ignore_errors=True)
 
@@ -1852,29 +1934,40 @@ def serve_mesh_rank(rank: int, world: int, coordinator: str, out: str) -> int:
 def _mesh_world1(state):
     """(a): Config() (bf16) over an NCCL group of one rank under
     make_mesh((1, 1, 1)) against the plain server, under cuDNN's
-    deterministic algorithms: bit for bit."""
+    deterministic algorithms: bit for bit once the plain server runs the
+    head a mesh runs (the conv and ``soft_argmin``); its own fused head's
+    distance is logged."""
     import torch
     import torch.distributed as dist
     from msnets_tpu_torch import Config, StereoServer
+    from msnets_tpu_torch.models import gcnet
+    from msnets_tpu_torch.models.layers import conv_head
     from msnets_tpu_torch.parallel import mesh as pm
     world, rank = pm.init_distributed(f"127.0.0.1:{_free_port()}", 1, 0)
     assert (world, rank, dist.get_backend()) == (1, 0, "nccl")
     cfg, sd = Config(), state["state_dict"]
     requests = [textured_pair(256, 512, 24 + 8 * i, 50 + i) for i in range(3)]
-    prev = torch.backends.cudnn.deterministic
+    prev, fused_head = torch.backends.cudnn.deterministic, gcnet.subpixel_soft_argmin
     try:
         torch.backends.cudnn.deterministic = True
+        fused = [StereoServer(cfg, sd).predict(l, r) for l, r in requests]
+        gcnet.subpixel_soft_argmin = conv_head
         plain = [StereoServer(cfg, sd).predict(l, r) for l, r in requests]
+        gcnet.subpixel_soft_argmin = fused_head
         server = StereoServer(cfg, sd, mesh=pm.make_mesh((1, 1, 1)))
         r = _mesh_serve(server, requests, 0)
         del server
     finally:
+        gcnet.subpixel_soft_argmin = fused_head
         torch.backends.cudnn.deterministic = prev
         dist.destroy_process_group()
     same = all(np.array_equal(a, b) for a, b in zip(plain, r["disps"]))
+    gap = max(float(np.abs(a - b).max()) for a, b in zip(fused, plain))
     log(f"serve_mesh world 1 (NCCL, make_mesh((1, 1, 1)), Config() bf16, "
         f"256x512, cuDNN deterministic): {len(requests)} requests bit for "
-        f"bit the plain server's: {same}; {r['collectives']:.0f} "
+        f"bit the plain server's with the conv head: {same}; the plain "
+        f"server's fused head max |d disparity| {gap:.3g} px from it (its "
+        f"float32 head against cuDNN's TF32 one); {r['collectives']:.0f} "
         f"collectives a request (nothing is split); launches "
         f"{r['launches']}")
     assert same
@@ -2736,7 +2829,8 @@ def _quant_servers(state):
             _check_disp(d, a.shape, cfg.model.max_disp)
         n_int8 = 3 * per[0] + per[1]
         want = _want(census_aml=len(requests), int8_conv3d=n_int8,
-                     int8_absmax=n_int8 if mode == "dynamic" else 0)
+                     int8_absmax=n_int8 if mode == "dynamic" else 0,
+                     head=len(requests) if model == "MS-GCNet" else 0)
         diff = np.abs(server.predict(l, r) - ref[model])
         m = cfg.model
         log(f"serve_quant {key} ({model}, quant_scope {scope}, {mode}, "
@@ -2844,7 +2938,8 @@ def _quant_cli(state):
     assert all(np.isfinite(v) for v in scores), scores
     assert launches == _want(census_aml=CLI_FRAMES + 1,
                              int8_conv3d=3 * CLI_FRAMES,
-                             int8_absmax=flagged), launches
+                             int8_absmax=flagged,
+                             head=CLI_FRAMES + 1), launches
     shutil.rmtree(CLI_ROOT, ignore_errors=True)
     return launches
 
@@ -2922,16 +3017,23 @@ def main() -> int:
         "int8_absmax": ("msnets_tpu_torch/csrc/int8_quantize.cu",
                         "msnets_tpu/models/layers.py:111 (_quant_act's "
                         "max pass, XLA), 859 (the calibration's)"),
+        # no Pallas kernel: SubpixelSoftArgminHead's XLA math
+        "subpixel_soft_argmin": ("msnets_tpu_torch/csrc/"
+                                 "subpixel_soft_argmin.cu",
+                                 "msnets_tpu/models/layers.py:1414 "
+                                 "(SubpixelSoftArgminHead, XLA)"),
     }
     kernels = []
     for name, (source, replaces) in sources.items():
         t = state[name]
         # each main path's launches, counted from 0 just before it
         by_path = {path: n[name]
-                   for path, n in state["launches_by_path"].items()}
+                   for path, n in state["launches_by_path"].items()
+                   if name in n}
         kernels.append({
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": sum(by_path.values()),
+            "replaces": replaces,
+            "launches": sum(by_path.values()),
             "launches_by_path": by_path,
             "max_abs_err": state["max_abs_err"][name], "ms": t["ms"],
             "kernel_ms": t["ms"], "plain_ms": t["plain_ms"],

@@ -20,14 +20,25 @@ Parameters are float32; ``compute_dtype`` is the dtype of the convolutions
 (the input volume and each kernel are cast to it), while BN statistics and
 the softmax stay float32: the JAX train step's placement. The volume is
 copied into the NDHWC memory format with that cast (``layers.to_ndhwc``)
-and every activation keeps it, the head's too: deconv5 runs with its
-output channels padded by zero kernels (``layers.one_channel_conv``), as
-cuDNN transposes a one-channel output. The head runs in
-``compute_dtype`` in train mode and in float32 in eval mode (the server's
-float32 head). deconv5's bias stays out of the graph, as in the JAX head
-(``SubpixelSoftArgminHead`` accepts it and never reads it): it shifts every
-logit equally and cancels in the softmax, so leaving it out changes no
-output, and its gradient is exactly 0, so Adam leaves it as it is.
+and every activation keeps it.
+
+The head (``head``, span ``regularizer.head``) takes one of two paths by
+what it can observe. Served, in eval mode with gradients off on a plain
+tensor whose channels the kernel's plan takes (``subpixel_soft_argmin.
+fits``: whole 16-byte copies, at most 64), it is ``ops.cuda.
+subpixel_soft_argmin``: deconv5's float32 kernel on the decoder's NDHWC
+output, the softmax and the soft-argmin in one pass that never writes the
+full-resolution logit volume (the hand-written kernel on the card, its
+plain version on the CPU). Otherwise (training, gradients, a ``Sharded``
+volume, another width) it is ``layers.conv_head``: deconv5 as a conv with
+its output channels padded by zero kernels (``layers.one_channel_conv``,
+as cuDNN transposes a one-channel output), in ``compute_dtype`` in train
+mode and float32 in eval mode, then ``soft_argmin``: the logits' gradient
+and the split softmax over the disp group need the logits. deconv5's bias
+stays out of the graph, as in the JAX head (``SubpixelSoftArgminHead``
+accepts it and never reads it): it shifts every logit equally and cancels
+in the softmax, so leaving it out changes no output, and its gradient is
+exactly 0, so Adam leaves it as it is.
 
 With ``remat`` the train forward recomputes every BN'd stage (stem convs,
 encoder blocks, decoder deconvs) in the backward, as the JAX model's
@@ -61,11 +72,13 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..ops.cuda.subpixel_soft_argmin import fits, subpixel_soft_argmin
 from ..ops.features import MatchingStage
+from ..parallel import mesh as pm
+from ..utils.profiling import span
 from .layers import (Conv3DBlock, ConvBN3D, DeconvBN3D, compute_dtype,
-                     he_normal_, one_channel_conv, remat, soft_argmin,
-                     to_ndhwc)
-from .quant import QUANT_SCOPES, QuantSite
+                     conv_head, he_normal_, remat, to_ndhwc)
+from .quant import NDHWC, QUANT_SCOPES, QuantSite
 
 
 class MSGCNet(nn.Module):
@@ -159,8 +172,19 @@ class MSGCNet(nn.Module):
         x = F.relu(stage(self.deconvbn2, x) + res_l26)
         x = F.relu(stage(self.deconvbn3, x) + res_l23)
         x = F.relu(stage(self.deconvbn4, x) + res_l20)
-        hd = self.compute_dtype if self.training else torch.float32
+        with span("regularizer.head"):
+            return self.head(x)
+
+    def head(self, x) -> torch.Tensor:
+        """The disparity of the decoder's output ``x`` by deconv5, the
+        softmax over D and the soft-argmin, on the path the module
+        docstring gives."""
         s = self.stride
-        logits = one_channel_conv(x.to(hd), self.deconv5.weight, s,
-                                  s - 1).squeeze(1)
-        return soft_argmin(logits, self.max_disp)
+        if (self.training or torch.is_grad_enabled()
+                or isinstance(x, pm.Sharded) or not fits(x)):
+            hd = self.compute_dtype if self.training else torch.float32
+            return conv_head(x, self.deconv5.weight, s, self.max_disp, hd)
+        # no copy unless an int8 conv (NCDHW) or a batch-1 CPU conv upstream
+        # left the decoder output in another layout
+        return subpixel_soft_argmin(x.contiguous(memory_format=NDHWC),
+                                    self.deconv5.weight, s, self.max_disp)

@@ -540,3 +540,14 @@ def _soft_argmin(x: torch.Tensor) -> torch.Tensor:
     d = torch.arange(x.shape[1], dtype=torch.float32,
                      device=x.device).view(1, -1, 1, 1)
     return (p * d).sum(dim=1)
+
+
+def conv_head(x, weight: torch.Tensor, stride: int, max_disp: int,
+              dtype: torch.dtype = torch.float32):
+    """MS-GCNet's head as a conv: deconv5 (``weight`` [C, 1, 3, 3, 3],
+    ``stride``, output_padding stride - 1) on ``x`` cast to ``dtype``,
+    writing the logits, then ``soft_argmin``: [N, C, D, H, W] ->
+    [N, stride*H, stride*W] (``x`` NDHWC, or a ``parallel.Sharded``
+    volume). The path ``MSGCNet.head`` keeps where it needs the logits."""
+    logits = one_channel_conv(x.to(dtype), weight, stride, stride - 1)
+    return soft_argmin(logits.squeeze(1), max_disp)

@@ -26,7 +26,11 @@ The spans, by layer (the first component after ``msn.``):
     with its counters); its tower's backward runs inside
     ``regularizer.backward``;
   * regularizer: ``regularizer`` (the model when serving),
-    ``regularizer.forward`` and ``regularizer.backward`` (training); its
+    ``regularizer.forward`` and ``regularizer.backward`` (training), and
+    inside the first two MS-GCNet's ``regularizer.head`` (deconv5, the
+    softmax and the soft-argmin, ``models/gcnet.py``; served, the
+    ``subpixel_soft_argmin`` kernel, counter
+    ``subpixel_soft_argmin.launches``); its
     entry copies the volume into NDHWC (``models/layers.py``; counters
     ``to_ndhwc.copies``, one a volume that came in another layout, and
     ``to_ndhwc.bytes``, the bytes those copies wrote);

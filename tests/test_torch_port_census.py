@@ -86,10 +86,11 @@ def test_argument_checks(ndisp, wsize):
 
 
 def test_build_names_both_kernels_and_hashes_the_shared_header():
-    # both census kernels, the 8-channel matchers, and the int8 conv and
-    # quantize of the int8 eval
+    # both census kernels, the 8-channel matchers, the int8 conv and
+    # quantize of the int8 eval, and MS-GCNet's serving head
     assert _build.kernel_names() == ["census", "census_aml", "int8_conv3d",
-                                     "int8_quantize", "matchers_aml"]
+                                     "int8_quantize", "matchers_aml",
+                                     "subpixel_soft_argmin"]
     assert (_build.CSRC_DIR / "census_common.cuh").is_file()
     p = _build.library_path("census")
     assert p.name.startswith("libcensus_") and p != _build.library_path(

@@ -1,5 +1,6 @@
 """The port on the GPU: the census, census_aml, matchers_aml, int8_absmax,
-int8_quantize and int8_conv3d kernels against their plain PyTorch versions, and the feature
+int8_quantize, int8_conv3d and subpixel_soft_argmin kernels against their
+plain PyTorch versions, and the feature
 stage, the server (8-channel, 16-channel and raw variants, ``predict`` and
 ``predict_stream``; MS-PSMNet), the train
 step (MS-GCNet; MS-PSMNet with and without remat), the checkpoint round trip
@@ -29,6 +30,8 @@ from msnets_tpu_torch.ops.cuda.census_aml import (census_aml,
                                                   census_aml_reference)
 from msnets_tpu_torch.ops.cuda.matchers_aml import (matchers_aml,
                                                     matchers_aml_reference)
+from msnets_tpu_torch.ops.cuda.subpixel_soft_argmin import (
+    subpixel_soft_argmin, subpixel_soft_argmin_reference)
 from msnets_tpu_torch.ops.features import ms_features_test
 from msnets_tpu_torch.runtime import fp32_reference
 
@@ -802,3 +805,122 @@ def test_int8_server_on_the_card_matches_the_cpu(cuda, model, mode, n_int8):
     print(f"{model} {mode}: card-CPU mean {gap:.3g} px, max "
           f"{np.abs(got - ref).max():.3g}; int8-float32 {int8:.3g} px")
     assert gap * 20 <= int8
+
+
+def _head_inputs(cuda, shape, dtype, stride, peak=None, seed=0):
+    """The decoder's output after its ReLU, NDHWC in ``dtype``, and a
+    He-normal deconv5 kernel; with ``peak``, scaled so that the largest
+    |logit| is ``peak``."""
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(shape, generator=g).relu().to(
+        cuda, dtype, memory_format=torch.channels_last_3d)
+    k = (torch.randn((shape[1], 1, 3, 3, 3), generator=g)
+         * (2 / 27) ** 0.5).to(cuda)
+    if peak is not None:
+        logits = torch.nn.functional.conv_transpose3d(
+            x.double(), k.double(), None, stride, 1, stride - 1)
+        k = k * (peak / logits.abs().max().item())
+    return x, k
+
+
+HEAD_CASES = [
+    ((1, 32, 96, 192, 624), 2, "bf16", None),   # the online cell: 384x1248
+    ((2, 32, 7, 13, 45), 2, "bf16", None),      # odd D, H, W; two samples
+    ((1, 32, 6, 9, 33), 2, "bf16", 80.0),       # one row and column past a tile
+    ((1, 32, 24, 48, 156), 4, "bf16", None),    # quarter_input at 384x1248
+    ((2, 32, 5, 7, 35), 4, "bf16", 80.0),
+    ((1, 8, 16, 12, 70), 2, "f32", None),       # the card tests' F=8 server
+    ((1, 16, 3, 1, 1), 2, "f32", None),         # one pixel
+    ((1, 64, 9, 10, 31), 4, "f32", None),       # the most channels it takes
+]
+
+
+@pytest.mark.parametrize("shape,stride,dtype,peak", HEAD_CASES)
+def test_subpixel_soft_argmin_kernel_matches_float64(cuda, shape, stride,
+                                                     dtype, peak):
+    """Against the plain version in float64 on the same inputs: max |dd| <=
+    1e-3 px. The kernel sums 27 taps x C channels a logit in float32 (an
+    error of ~1e-6 of the logits' scale) and takes __expf (a relative error
+    of ~2^-21 on the softmax's weights, which moves the disparity by at most
+    that times the spread of d, < 1e-4 px at D = 192)."""
+    x, k = _head_inputs(cuda, shape, {"bf16": torch.bfloat16,
+                                      "f32": torch.float32}[dtype], stride,
+                        peak)
+    before = subpixel_soft_argmin.launches
+    got = subpixel_soft_argmin(x, k, stride, stride * shape[2])
+    assert subpixel_soft_argmin.launches == before + 1
+    want = subpixel_soft_argmin_reference(x.double(), k.double(), stride)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32
+    assert got.shape == (shape[0], stride * shape[3], stride * shape[4])
+    err = (got.double() - want).abs().max().item()
+    print(f"{shape} s={stride} {dtype}: max |dd| {err:.3g} px")
+    assert err <= 1e-3
+
+
+@pytest.mark.parametrize("stride", [2, 4])
+def test_subpixel_soft_argmin_kernel_matches_the_cudnn_head(cuda, stride):
+    """At the online shape (its quarter with stride 4), against the path it
+    replaces, deconv5 through cuDNN plus ``soft_argmin``, with TF32 off:
+    both float32, so within 1e-3 px."""
+    from msnets_tpu_torch.models.layers import conv_head
+    shape = (1, 32, 96, 192, 624) if stride == 2 else (1, 32, 24, 48, 156)
+    x, k = _head_inputs(cuda, shape, torch.bfloat16, stride, seed=1)
+    got = subpixel_soft_argmin(x, k, stride, stride * shape[2])
+    with fp32_reference():
+        want = conv_head(x, k, stride, stride * shape[2])
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    print(f"s={stride}: kernel against cuDNN (TF32 off) max |dd| {err:.3g}")
+    assert err <= 1e-3
+
+
+def test_subpixel_soft_argmin_rejects_what_it_does_not_take(cuda):
+    x, k = _head_inputs(cuda, (1, 32, 8, 6, 10), torch.bfloat16, 2)
+    with pytest.raises(ValueError):                       # mixed devices
+        subpixel_soft_argmin(x, k.cpu(), 2, 16)
+    with pytest.raises(ValueError):                       # NCDHW
+        subpixel_soft_argmin(x.contiguous(), k, 2, 16)
+    with pytest.raises(TypeError):                        # float16
+        subpixel_soft_argmin(x.half(), k, 2, 16)
+    with pytest.raises(ValueError):                       # D_out != max_disp
+        subpixel_soft_argmin(x, k, 2, 32)
+    with pytest.raises(ValueError):                       # 4 bf16 channels
+        subpixel_soft_argmin(x[:, :4].contiguous(
+            memory_format=torch.channels_last_3d), k[:4], 2, 16)
+
+
+def test_subpixel_soft_argmin_launches_once_a_request_not_in_training(cuda):
+    cfg = Config(model=ModelConfig(max_disp=32, base_filters=8,
+                                   compute_dtype="bfloat16"))
+    sd = MSGCNet(32, 8, 8, generator=torch.Generator().manual_seed(3)).state_dict()
+    srv = StereoServer(cfg, sd, device=cuda)
+    before = subpixel_soft_argmin.launches
+    for i in range(3):
+        srv.predict(*_pair((60, 120), i))
+    assert subpixel_soft_argmin.launches == before + 3
+    tcfg = _train_cfg()
+    tr = Trainer(tcfg, device=cuda, seed=3)
+    b = synthetic_train_batch(32, 64, 32, tcfg.matching, 2, 5, 0)
+    before = subpixel_soft_argmin.launches
+    tr.step_fn(b["board_h"], b["board_w_left"], b["board_w_right"])(
+        b["iml"], b["imr"], b["disp"], 1e-3)
+    torch.cuda.synchronize()
+    assert subpixel_soft_argmin.launches == before
+
+
+def test_subpixel_soft_argmin_leaves_other_widths_to_the_conv_head(cuda):
+    """A float32 MS-GCNet of 6 filters (a width the kernel does not take)
+    serves on the card through the conv head, launching nothing, and gives
+    the CPU server's disparity."""
+    cfg = Config(model=ModelConfig(max_disp=32, base_filters=6,
+                                   compute_dtype="float32"))
+    sd = MSGCNet(32, 8, 6, generator=torch.Generator().manual_seed(3)).state_dict()
+    a, b = _pair((60, 120), 0)
+    with fp32_reference():
+        before = subpixel_soft_argmin.launches
+        got = StereoServer(cfg, sd, device=cuda).predict(a, b)
+        assert subpixel_soft_argmin.launches == before
+    ref = StereoServer(cfg, sd, device="cpu").predict(a, b)
+    assert got.shape == ref.shape == (60, 120)
+    np.testing.assert_allclose(got, ref, atol=2e-3)

@@ -14,7 +14,8 @@ import torch
 from msnets_tpu.parallel import mesh as jax_mesh
 from msnets_tpu_torch import cli
 from msnets_tpu_torch.config import Config, MeshConfig, ModelConfig
-from msnets_tpu_torch.models import MSGCNet
+from msnets_tpu_torch.models import MSGCNet, gcnet
+from msnets_tpu_torch.models.layers import conv_head
 from msnets_tpu_torch.parallel import mesh as pm
 from msnets_tpu_torch.serve import StereoServer
 
@@ -81,9 +82,12 @@ def _server_sd():
     return m.state_dict()
 
 
-def test_a_mesh_of_one_process_is_the_plain_server():
+def test_a_mesh_of_one_process_is_the_plain_server(monkeypatch):
     """make_mesh((1, 1, 1)) without a process group: nothing is split, no
-    collective runs, and the server equals the plain one bit for bit."""
+    collective runs, and the server equals the plain one bit for bit once
+    both run the head a mesh runs (a plain server's fused head is held to
+    it in tests/test_torch_port_head.py); with its own head, within float32
+    reassociation."""
     mesh = pm.make_mesh((1, 1, 1))
     assert mesh.group is None and mesh.coords == (0, 0, 0)
     cfg = Config(model=ModelConfig(max_disp=32, base_filters=4,
@@ -92,11 +96,14 @@ def test_a_mesh_of_one_process_is_the_plain_server():
     rng = np.random.default_rng(1)
     iml, imr = (rng.integers(0, 256, (60, 120), dtype=np.uint8)
                 for _ in range(2))
-    want = StereoServer(cfg, sd, device="cpu").predict(iml, imr)
+    fused = StereoServer(cfg, sd, device="cpu").predict(iml, imr)
     before = pm.collectives
     got = StereoServer(cfg, sd, device="cpu", mesh=mesh).predict(iml, imr)
     assert pm.collectives == before
+    monkeypatch.setattr(gcnet, "subpixel_soft_argmin", conv_head)
+    want = StereoServer(cfg, sd, device="cpu").predict(iml, imr)
     np.testing.assert_array_equal(got, want)
+    np.testing.assert_allclose(fused, want, rtol=0, atol=1e-4)
     with pytest.raises(ValueError, match="does not lay out"):
         pm.make_mesh((1, 2, 1))
 

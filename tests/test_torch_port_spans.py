@@ -87,6 +87,8 @@ MATCHERS = {"8ch": _leaf("features.downsample", "features.census_aml",
                           "features.ncc", "features.zsad",
                           "features.sobel_sad", "features.assemble"),
             "raw": _leaf("features.downsample")}
+# the model with its head (models/gcnet.py) when serving
+REGULARIZER = ("regularizer", _leaf("regularizer.head"))
 MATCHING = {"8ch": MatchingConfig(),
             "16ch": MatchingConfig(num_channels=16),
             "raw": MatchingConfig(features_mode="raw")}
@@ -134,8 +136,8 @@ def test_predict_spans(tmp_path, variant):
     pair = _pair(60, 120)
     got = _traced(tmp_path, lambda: srv.predict(*pair))
     assert got == [("server.predict", _leaf("server.pad", "server.h2d")
-                    + [("features", MATCHERS[variant])]
-                    + _leaf("regularizer", "server.d2h", "server.crop"))]
+                    + [("features", MATCHERS[variant]), REGULARIZER]
+                    + _leaf("server.d2h", "server.crop"))]
 
 
 def _slow_finish(srv, seconds):
@@ -157,7 +159,7 @@ def test_stream_spans_and_slot_waits(tmp_path):
     out = []
     got = _traced(tmp_path, lambda: out.extend(srv.predict_stream(pairs)))
     frame = _leaf("server.pad", "server.h2d") + [
-        ("features", MATCHERS["8ch"])] + _leaf("regularizer", "server.d2h")
+        ("features", MATCHERS["8ch"]), REGULARIZER] + _leaf("server.d2h")
     assert got == [("server.launch", frame),
                    ("server.launch", frame[:1] + _leaf("server.slot_wait")
                     + frame[1:])]
@@ -201,9 +203,10 @@ def test_train_step_spans(tmp_path, accum):
     fn = tr.step_fn(b["board_h"], b["board_w_left"], b["board_w_right"])
     got = _traced(tmp_path, lambda: fn(b["iml"], b["imr"], b["disp"], 1e-3))
     per = 2 // accum
-    micro = ([("features", MATCHERS["8ch"] * per)]
-             + _leaf("regularizer.forward", "trainer.loss",
-                     "regularizer.backward", "trainer.metrics"))
+    micro = ([("features", MATCHERS["8ch"] * per),
+              ("regularizer.forward", _leaf("regularizer.head"))]
+             + _leaf("trainer.loss", "regularizer.backward",
+                     "trainer.metrics"))
     assert got == [("trainer.step", _leaf("trainer.h2d", "trainer.optimizer")
                     + micro * accum
                     + _leaf("trainer.metrics", "trainer.optimizer"))]
